@@ -1,0 +1,129 @@
+"""Kernel 4: the whole fast Griffin-Lim vocoder (port of
+``zerospeech_tts_tpu/ops/pallas_gl.py::griffin_lim_pallas``; CUDA source
+``csrc/griffin_lim.cu``).
+
+Signal-domain momentum carry, the Pallas kernel's semantics (not the XLA
+path's reflect re-pad): with istft linear, fast-GL momentum on spectra is
+the same extrapolation on their signals,
+
+    v_1 = u_0 = istft(mag, 0)
+    repeat: (re,im) = stft(v_i);  n_i = mag * (re,im)/max(|.|, 1e-8)
+            u_i = istft(n_i);     v_{i+1} = u_i + a (u_i - u_{i-1})
+    out    = istft(mag * phase(stft(v_{N+1})))
+
+where stft analyses the UNTRIMMED overlap-add signal (frame t = samples
+[t*hop, t*hop + win)) and istft divides by the full window-square envelope
+``_fused_wss(cfg, t)``. The output is trimmed to the librosa span
+``[lead, lead + (t-1)*hop)``. Any t >= 1 works (the TPU kernel needed
+t >= 2r and three length tiers). :func:`griffin_lim` launches the kernel on
+a CUDA tensor and runs :func:`griffin_lim_plain` on a CPU tensor.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from zerospeech_tts_tpu_torch.config import AudioConfig
+from zerospeech_tts_tpu_torch.dsp import audio as dsp_audio
+from zerospeech_tts_tpu_torch.ops import build
+
+launches = 0  # kernel launches through griffin_lim (one per whole vocoder call)
+
+
+@functools.lru_cache(maxsize=16)
+def _bases(cfg: AudioConfig, device: str):
+    """(ca, sa [win, F], cs, ss [F, win]) f32 on ``device``."""
+    return tuple(torch.from_numpy(a).to(device) for a in dsp_audio._fused_bases(cfg))
+
+
+@functools.lru_cache(maxsize=16)
+def _kernel_synthesis_bases(cfg: AudioConfig, device: str):
+    """(cs, ss) zero-padded to [F rounded up to 4, win]: the synthesis
+    kernel reads its staged spectra four bins at a time."""
+    _, _, cs, ss = dsp_audio._fused_bases(cfg)
+    fp = -(-cfg.n_freq // 4) * 4
+    pad = ((0, fp - cfg.n_freq), (0, 0))
+    return tuple(torch.from_numpy(np.pad(a, pad)).to(device) for a in (cs, ss))
+
+
+@functools.lru_cache(maxsize=32)
+def _wss_inv(cfg: AudioConfig, t: int, device: str) -> torch.Tensor:
+    """1 / the full window-square envelope, [(t - 1 + r) * hop] f32."""
+    inv = 1.0 / dsp_audio._fused_wss(cfg, t).astype(np.float64)
+    return torch.from_numpy(inv.astype(np.float32)).to(device)
+
+
+def _prepare(mag: torch.Tensor, cfg: AudioConfig, n_iters):
+    if cfg.win_length % cfg.hop_length:
+        raise ValueError("Griffin-Lim needs win_length % hop_length == 0")
+    if mag.dim() != 3 or mag.shape[-1] != cfg.n_freq:
+        raise ValueError(f"mag {tuple(mag.shape)}: expected [B, T, {cfg.n_freq}]")
+    return cfg.gl_iters if n_iters is None else int(n_iters)
+
+
+def _trim(out: torch.Tensor, cfg: AudioConfig, t: int) -> torch.Tensor:
+    lead = dsp_audio.gl_lead(cfg)
+    return out[:, lead : lead + (t - 1) * cfg.hop_length]
+
+
+def griffin_lim_plain(mag: torch.Tensor, cfg: AudioConfig, n_iters: int | None = None):
+    """Plain PyTorch version: linear magnitudes [B, T, F] -> [B, (T-1)*hop]."""
+    n_iters = _prepare(mag, cfg, n_iters)
+    b, t, _ = mag.shape
+    hop, win = cfg.hop_length, cfg.win_length
+    r = win // hop
+    ca, sa, cs, ss = _bases(cfg, str(mag.device))
+    wss_inv = _wss_inv(cfg, t, str(mag.device))
+
+    def istft(sre, sim):  # [B, T, F] -> untrimmed normalised OLA [B, (T-1+r)*hop]
+        frames = sre @ cs if sim is None else sre @ cs + sim @ ss
+        frames = frames.reshape(b, t, r, hop)
+        acc = mag.new_zeros(b, t - 1 + r, hop)
+        for k in range(r):
+            acc[:, k : k + t] += frames[:, :, k]
+        return acc.reshape(b, -1) * wss_inv
+
+    def project(x):
+        segs = x.unfold(-1, win, hop)  # [B, T, win]: exactly T frames
+        re, im = segs @ ca, segs @ sa
+        norm = torch.clamp(torch.sqrt(re * re + im * im), min=1e-8)
+        return mag * re / norm, mag * im / norm
+
+    alpha = cfg.gl_momentum
+    v = u = istft(mag, None)
+    for _ in range(n_iters):
+        ui = istft(*project(v))
+        v = ui + alpha * (ui - u)
+        u = ui
+    return _trim(istft(*project(v)), cfg, t)
+
+
+def griffin_lim(mag: torch.Tensor, cfg: AudioConfig, n_iters: int | None = None):
+    """Same contract as :func:`griffin_lim_plain`; the CUDA kernel on a CUDA
+    tensor (2 * n_iters + 3 launches from one C call)."""
+    if mag.device.type == "cpu":
+        return griffin_lim_plain(mag, cfg, n_iters)
+    n_iters = _prepare(mag, cfg, n_iters)
+    b, t, f = mag.shape
+    build.require(mag, "griffin-lim mag", (b, t, f))
+    hop, win = cfg.hop_length, cfg.win_length
+    n_sig = (t - 1 + win // hop) * hop
+    ca, sa, _, _ = _bases(cfg, str(mag.device))
+    cs, ss = _kernel_synthesis_bases(cfg, str(mag.device))
+    wss_inv = _wss_inv(cfg, t, str(mag.device))
+    sre, sim = torch.empty_like(mag), torch.empty_like(mag)
+    u, v, out = (torch.empty(b, n_sig, device=mag.device) for _ in range(3))
+    lib = build.load("griffin_lim")
+    fn = build.bind(lib, "zs_griffin_lim", 11, 6, 1)
+    err = fn(
+        mag.data_ptr(), ca.data_ptr(), sa.data_ptr(), cs.data_ptr(), ss.data_ptr(),
+        wss_inv.data_ptr(), sre.data_ptr(), sim.data_ptr(), u.data_ptr(), v.data_ptr(),
+        out.data_ptr(), b, t, f, win, hop, n_iters, cfg.gl_momentum, build.stream_of(mag),
+    )
+    build.check(lib, err, "griffin-lim kernel")
+    global launches
+    launches += 1
+    return _trim(out, cfg, t)
