@@ -4,15 +4,28 @@
     python3 chip_smoke.py
 
 1. Refuses to run without a CUDA card (or outside a checkout of the repo).
-2. Builds the three hand-written kernels from csrc/ with nvcc (sm_90a).
-3. Holds each kernel against its plain PyTorch version on the card at the
-   conversion path's flagship shapes, and times both.
-4. Converts a seeded 8-wav, 2-target corpus at flagship width
-   (hps/zerospeech.json, random weights from a seed, GL-100) through the
-   port's CLI, counting kernel launches, and checks the outputs; then holds
-   the card's conversion of one utterance against the plain path on the CPU.
-5. Prints the card (nvidia-smi name, power limit), one JSON line with the
-   kernels' results, and as the last line
+2. Builds the four hand-written kernels from csrc/ with nvcc (sm_90a), all
+   at once.
+3. Holds each kernel against its plain PyTorch version on the card at its
+   path's flagship shapes and times both, beside the card's least time for
+   the same work and, where one PyTorch call computes the same function,
+   that call's time; holds GRUScan's gradients against cuDNN nn.GRU.
+4. Conversion path: converts a seeded 8-wav, 2-target corpus at flagship
+   width (hps/zerospeech.json, random weights from a seed, GL-100) through
+   the port's CLI, counting kernel launches, checks the outputs, and holds
+   the card's conversion of one utterance against the plain CPU path.
+5. Training path: a seeded 6-speaker wav corpus through the CLI at
+   flagship width: preprocess -> train1 (4 iterations a phase) -> train1
+   resumed -> train2 (one GAN cycle) -> export, counting kernel launches,
+   then convert with the trained bundle, counted apart; checks losses,
+   parameter updates and gradients; then one pretrain_AE and one train
+   step on the card against the CPU from the same state and the same draws,
+   with the CPU replaying the card's hard decisions and few of its own
+   differing.
+6. Prints the card (nvidia-smi name, power limit), one JSON line with the
+   kernels' results (``launches``: the count on the path the kernel's slice
+   ported, conversion or training; ``launches_by_path``: each path's own
+   count), and as the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Any failed check raises, so the run exits non-zero and prints no last line.
@@ -23,9 +36,10 @@ from __future__ import annotations
 
 import json
 import math
-import subprocess
+import statistics
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
@@ -34,8 +48,12 @@ SRC = "zerospeech_tts_tpu_torch/csrc"
 REPLACES = {
     "frontend": "zerospeech_tts_tpu/ops/pallas_frontend.py:74",
     "gru": "zerospeech_tts_tpu/ops/pallas_gru.py:84",
+    "gru_bwd": "zerospeech_tts_tpu/ops/pallas_gru.py:218",
     "griffin_lim": "zerospeech_tts_tpu/ops/pallas_gl.py:470",
 }
+# H100 SXM peaks: f32 outside the tensor cores, HBM
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
 
 
 def fail(msg: str) -> None:
@@ -49,12 +67,32 @@ def check(ok: bool, msg: str) -> None:
 
 
 def card_line() -> str:
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    check(smi.returncode == 0 and smi.stdout.strip() != "", f"nvidia-smi failed: {smi.stderr}")
-    return smi.stdout.strip().splitlines()[0]
+    from zerospeech_tts_tpu_torch.tools.workload import card
+
+    line = card()
+    check(line != "", "nvidia-smi named no card")
+    return line.splitlines()[0]
+
+
+def bound(flops: float, nbytes: float) -> dict:
+    """The card's least time for the work: the larger of f32 FLOPs at the
+    f32 peak and bytes (each input read once, each output written once) at
+    the memory rate."""
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def rfft_flops(n: int) -> float:
+    """Operations of one real FFT (or inverse) of n points: 2.5 n log2 n,
+    half the usual 5 n log2 n of a complex one. The least work of a DFT,
+    whatever the kernel does (kernels 1 and 4 run direct DFT products)."""
+    return 2.5 * n * math.log2(n)
+
+
+def rel_l2(a, b) -> float:
+    import torch
+
+    return (torch.linalg.norm(a - b) / torch.linalg.norm(b)).item()
 
 
 def main() -> None:
@@ -72,7 +110,7 @@ def main() -> None:
         from zerospeech_tts_tpu_torch.dsp import audio
         from zerospeech_tts_tpu_torch.ops import build, frontend, griffin_lim, gru
         from zerospeech_tts_tpu_torch.tools.workload import (
-            TARGETS, WAV_SAMPLES, cuda_ms, speechlike, write_workload,
+            TARGETS, WAV_SAMPLES, cuda_ms, speechlike, write_train_corpus, write_workload,
         )
     except ImportError as e:
         fail(f"zerospeech_tts_tpu_torch is not importable beside {__file__} ({e})")
@@ -83,11 +121,12 @@ def main() -> None:
           f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
 
     # ------------------------------------------------------------- build
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(ops.KERNELS)) as pool:  # one nvcc per source, all at once
+        list(pool.map(build.load, ops.KERNELS))
+    print(f"build: {time.perf_counter() - t0:.2f} s wall for {len(ops.KERNELS)} kernels", flush=True)
     for name in ops.KERNELS:
-        t0 = time.perf_counter()
-        build.load(name)
-        print(f"build {name}: {time.perf_counter() - t0:.2f} s "
-              f"(nvcc {build.build_seconds[name]:.2f} s)", flush=True)
+        print(f"  nvcc {name}: {build.build_seconds[name]:.2f} s", flush=True)
         for line in build.build_log.get(name, "").splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
@@ -107,16 +146,39 @@ def main() -> None:
     plain_ms = cuda_ms(lambda: frontend.frontend_plain(ypad, cfg, 512), 20)
     print(f"frontend 8x512: max_abs_err {err:.3e} (atol 1e-4)  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms")
     check(err <= 1e-4, f"frontend kernel disagrees with its plain version: {err}")
-    results["frontend"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    # a frame: window, rfft, |.|, mel product, both dB-norms
+    nf, nm = cfg.n_freq, cfg.n_mels
+    fl = 8 * 512 * (cfg.win_length + rfft_flops(cfg.n_fft) + 4 * nf + 2 * nf * nm + 5 * (nf + nm))
+    nb = 4 * (ypad.numel() + nf * nm + cfg.win_length + mel_k.numel() + mag_k.numel())
+    results["frontend"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **bound(fl, nb))
 
-    gen = torch.Generator().manual_seed(0)
+    def gru_weights(b, t, h, seed):
+        g = torch.Generator().manual_seed(seed)
+        xw = torch.randn(b, t, 3 * h, generator=g).to(dev)
+        wh = (torch.randn(h, 3 * h, generator=g) / math.sqrt(h)).to(dev)
+        bh = (0.1 * torch.randn(3 * h, generator=g)).to(dev)
+        return xw, wh, bh
+
+    def cudnn_gru(b, t, i, h, backward: bool):
+        """cuDNN nn.GRU at the same sizes (input size i: it includes the
+        input projection the port hoists out of the kernel) - a yardstick."""
+        ref = torch.nn.GRU(i, h, batch_first=True).to(dev)
+        x = torch.randn(b, t, i, device=dev, requires_grad=backward)
+        dy = torch.randn(b, t, h, device=dev)
+
+        def run():
+            if backward:
+                ref(x)[0].backward(dy)
+            else:
+                with torch.no_grad():
+                    ref(x)
+        return cuda_ms(run, 10)
+
     gru_errs, gru_ms = [], {}
     for tag, b, t, rev, masked in (("decoder fwd", 16, 512, False, False),
                                    ("encoder rev masked", 8, 64, True, True)):
         h = 512
-        xw = torch.randn(b, t, 3 * h, generator=gen).to(dev)
-        wh = (torch.randn(h, 3 * h, generator=gen) / math.sqrt(h)).to(dev)
-        bh = (0.1 * torch.randn(3 * h, generator=gen)).to(dev)
+        xw, wh, bh = gru_weights(b, t, h, len(gru_errs))
         ln = torch.tensor([64, 61, 40, 64, 33, 9, 57, 1], dtype=torch.int32, device=dev) if masked else None
         ys_k = gru.gru_scan(xw, wh, bh, ln, reverse=rev)
         torch.cuda.synchronize()
@@ -129,8 +191,104 @@ def main() -> None:
         check(e <= 1e-4, f"gru kernel ({tag}) disagrees with its plain version: {e}")
         gru_errs.append(e)
         gru_ms[tag] = (k_ms, p_ms)
-    results["gru"] = dict(max_abs_err=max(gru_errs), ms=gru_ms["decoder fwd"][0],
-                          plain_ms=gru_ms["decoder fwd"][1])
+    b, t, h = 16, 512, 512
+    results["gru"] = dict(
+        max_abs_err=max(gru_errs), ms=gru_ms["decoder fwd"][0], plain_ms=gru_ms["decoder fwd"][1],
+        library_ms=cudnn_gru(b, t, 640, h, backward=False),
+        **bound(2 * b * t * h * 3 * h, 4 * (b * t * 3 * h + b * t * h + h * 3 * h + 3 * h)))
+    print(f"gru library (cuDNN nn.GRU forward, input 640) {results['gru']['library_ms']:.3f} ms", flush=True)
+
+    # kernel 3: decoder shape forward, encoder shape forward and reverse
+    bwd_errs, bwd_times = [], {}
+    for tag, b, t, rev in (("decoder", 32, 128, False), ("encoder fwd", 64, 16, False),
+                           ("encoder rev", 64, 16, True)):
+        h = 512
+        xw, wh, bh = gru_weights(b, t, h, 10 + len(bwd_errs))
+        ys = gru.gru_scan(xw, wh, bh, reverse=rev)
+        dys = torch.randn(b, t, h, generator=torch.Generator().manual_seed(7)).to(dev)
+        if rev:  # as GRUScan.backward conjugates a reverse scan
+            xw, ys, dys = (a.flip(1).contiguous() for a in (xw, ys, dys))
+        out_k = gru.gru_bwd(xw, wh, bh, ys, dys)
+        torch.cuda.synchronize()
+        out_p = gru.gru_bwd_plain(xw, wh, bh, ys, dys)
+        e = (out_k[0] - out_p[0]).abs().max().item()
+        r_wh, r_bh = rel_l2(out_k[1], out_p[1]), rel_l2(out_k[2], out_p[2])
+        line = (f"gru_bwd {tag} B={b} T={t} H={h}: dxw max_abs_err {e:.3e} (<= 1e-4)  "
+                f"dwh rel-L2 {r_wh:.3e} dbh rel-L2 {r_bh:.3e} (<= 1e-4)")
+        if tag == "decoder" or tag == "encoder fwd":
+            k_ms = cuda_ms(lambda: gru.gru_bwd(xw, wh, bh, ys, dys), 5)
+            p_ms = cuda_ms(lambda: gru.gru_bwd_plain(xw, wh, bh, ys, dys), 2)
+            lib_ms = cudnn_gru(b, t, 640 if tag == "decoder" else 1024, h, backward=True)
+            bwd_times[tag] = (k_ms, p_ms, lib_ms)
+            line += f"  kernel {k_ms:.3f} ms  plain {p_ms:.3f} ms  cuDNN GRU fwd+bwd {lib_ms:.3f} ms"
+        print(line, flush=True)
+        check(e <= 1e-4, f"gru_bwd kernel ({tag}) dxw disagrees with its plain version: {e}")
+        check(r_wh <= 1e-4 and r_bh <= 1e-4, f"gru_bwd kernel ({tag}) dwh/dbh rel-L2 {r_wh} {r_bh}")
+        bwd_errs.append(e)
+    b, t, h = 32, 128, 512
+    results["gru_bwd"] = dict(
+        max_abs_err=max(bwd_errs), ms=bwd_times["decoder"][0], plain_ms=bwd_times["decoder"][1],
+        library_ms=bwd_times["decoder"][2],
+        **bound(3 * 2 * b * t * h * 3 * h,
+                4 * (2 * b * t * 3 * h + 2 * b * t * h + 2 * h * 3 * h + 2 * 3 * h)))
+
+    # GRUScan (kernels 2 + 3) against cuDNN nn.GRU, decoder training shape
+    b, t, i, h = 32, 128, 640, 512
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(b, t, i, generator=g).to(dev)
+    wi = (torch.randn(i, 3 * h, generator=g) / math.sqrt(i)).to(dev)
+    bi = (0.1 * torch.randn(3 * h, generator=g)).to(dev)
+    _, wh, bh = gru_weights(1, 1, h, 4)
+    dys = torch.randn(b, t, h, generator=g).to(dev)
+    ours = [a.clone().requires_grad_(True) for a in (x, wi, bi, wh, bh)]
+    ys = gru.GRUScan.apply((ours[0] @ ours[1] + ours[2]).contiguous(), ours[3], ours[4], False)
+    ys.backward(dys)
+    ref = torch.nn.GRU(i, h, batch_first=True).to(dev)
+    with torch.no_grad():
+        ref.weight_ih_l0.copy_(wi.T)
+        ref.weight_hh_l0.copy_(wh.T)
+        ref.bias_ih_l0.copy_(bi)
+        ref.bias_hh_l0.copy_(bh)
+    xr = x.clone().requires_grad_(True)
+    yr, _ = ref(xr)
+    yr.backward(dys)
+    rels = [rel_l2(ys.detach(), yr.detach())] + [
+        rel_l2(a, r) for a, r in ((ours[0].grad, xr.grad), (ours[1].grad, ref.weight_ih_l0.grad.T),
+                                  (ours[2].grad, ref.bias_ih_l0.grad), (ours[3].grad, ref.weight_hh_l0.grad.T),
+                                  (ours[4].grad, ref.bias_hh_l0.grad))]
+    print("GRUScan vs cuDNN nn.GRU (B=32 T=128 H=512): rel-L2 ys, dx, dwi, dbi, dwh, dbh "
+          + " ".join(f"{r:.3e}" for r in rels) + " (<= 1e-4)", flush=True)
+    check(max(rels) <= 1e-4, f"GRUScan disagrees with cuDNN nn.GRU: {rels}")
+
+    # Like for like with cuDNN, which computes the input projection too:
+    # GRUScan (projection, kernel 2, kernel 3 and the projection's backward)
+    # against nn.GRU forward + backward, both at B=32 T=128 I=640; and the
+    # projection + kernel 2 against nn.GRU forward at kernel 2's shape.
+    # cuDNN's times move between runs by up to 70%, so each pair alternates
+    # over 7 rounds and the medians are compared.
+    x16 = torch.randn(16, 512, i, generator=g).to(dev)
+    ref16 = torch.nn.GRU(i, h, batch_first=True).to(dev)
+
+    def gruscan_fwd_bwd():
+        gru.GRUScan.apply((ours[0] @ ours[1] + ours[2]).contiguous(), ours[3], ours[4], False).backward(dys)
+
+    def cudnn_fwd():
+        with torch.no_grad():
+            ref16(x16)
+
+    pairs = {"gruscan_fwd_bwd_ms": (gruscan_fwd_bwd, []), "cudnn_fwd_bwd_ms": (lambda: ref(xr)[0].backward(dys), []),
+             "projection_fwd_ms": (lambda: gru.gru_scan((x16 @ wi + bi).contiguous(), wh, bh), []),
+             "cudnn_fwd_ms": (cudnn_fwd, [])}
+    for _ in range(7):
+        for fn, runs in pairs.values():
+            runs.append(cuda_ms(fn, 4))
+    med = {k: statistics.median(runs) for k, (_, runs) in pairs.items()}
+    results["gru_vs_cudnn"] = {k: dict(median=med[k], runs=runs) for k, (_, runs) in pairs.items()}
+    print(f"GRUScan fwd+bwd (projection + kernels 2, 3) {med['gruscan_fwd_bwd_ms']:.3f} ms vs cuDNN nn.GRU "
+          f"fwd+bwd {med['cudnn_fwd_bwd_ms']:.3f} ms (B=32 T=128 I=640, medians of 7): "
+          f"{med['gruscan_fwd_bwd_ms'] / med['cudnn_fwd_bwd_ms']:.3f}x; projection + kernel 2 "
+          f"{med['projection_fwd_ms']:.3f} ms vs cuDNN fwd {med['cudnn_fwd_ms']:.3f} ms (B=16 T=512 I=640): "
+          f"{med['projection_fwd_ms'] / med['cudnn_fwd_ms']:.3f}x", flush=True)
 
     def consistency(out, amp):
         re, im = audio.stft(out, cfg)
@@ -160,7 +318,7 @@ def main() -> None:
         check(out_k.shape == out_p.shape == (amp.shape[0], (amp.shape[1] - 1) * cfg.hop_length),
               f"griffin-lim output shape {tuple(out_k.shape)}")
         ck, cp = consistency(out_k, amp), consistency(out_p, amp)
-        rel = (torch.linalg.norm(out_k - out_p) / torch.linalg.norm(out_p)).item()
+        rel = rel_l2(out_k, out_p)
         rel_row = row_rel(out_k, out_p).max().item()
         ends = lambda x: torch.cat([x[:, :edge], x[:, -edge:]], -1)  # noqa: E731
         rel_edge = row_rel(ends(out_k), ends(out_p)).max().item()
@@ -172,7 +330,18 @@ def main() -> None:
             k_ms = cuda_ms(lambda: griffin_lim.griffin_lim(amp, cfg, n_iters=8), 3)
             p_ms = cuda_ms(lambda: griffin_lim.griffin_lim_plain(amp, cfg, n_iters=8), 3)
             line += f"  kernel {k_ms:.3f} ms  plain {p_ms:.3f} ms"
-            results["griffin_lim"] = dict(ms=k_ms, plain_ms=p_ms, rel_l2=rel)
+            bt, tt = amp.shape[0], amp.shape[1]
+            # a frame: synthesis = irfft, window, overlap-add, wss scale;
+            # analysis = window, rfft, projection onto the magnitudes; the
+            # momentum per sample. One synthesis, then n_iters + 1 rounds of
+            # both (griffin_lim_plain), momentum in n_iters of them.
+            win, hop = cfg.win_length, cfg.hop_length
+            syn = rfft_flops(cfg.n_fft) + 2 * win + hop
+            ana = win + rfft_flops(cfg.n_fft) + 8 * cfg.n_freq
+            fl = bt * tt * (syn + 9 * (ana + syn) + 8 * 3 * hop)
+            results["griffin_lim"] = dict(
+                ms=k_ms, plain_ms=p_ms, rel_l2=rel, library_ms=None,
+                **bound(fl, 4 * (amp.numel() + bt * (tt - 1) * hop)))
         print(line, flush=True)
         check(abs(ck - cp) <= 1e-3, f"griffin-lim kernel ({tag}) consistency {ck} vs plain {cp}")
         check(rel <= 1e-3, f"griffin-lim kernel ({tag}) signal rel-L2 {rel}")
@@ -182,7 +351,7 @@ def main() -> None:
     results["griffin_lim"]["max_abs_err"] = max(gl_errs)
     torch.cuda.synchronize()
 
-    # ------------------------------------------------ the slice, end to end
+    # ------------------------------------------- conversion path, end to end
     import scipy.io.wavfile
 
     from zerospeech_tts_tpu_torch import cli
@@ -193,8 +362,8 @@ def main() -> None:
 
     hps, acfg, speakers, n_params = write_workload(OUT, seed=0)
     wav_dir, result_dir = OUT / "wavs", OUT / "result"
-    print(f"slice: {len(WAV_SAMPLES)} wavs x {len(TARGETS)} targets, flagship width ({n_params} params), "
-          f"GL-{acfg.gl_iters}", flush=True)
+    print(f"conversion path: {len(WAV_SAMPLES)} wavs x {len(TARGETS)} targets, flagship width "
+          f"({n_params} params), GL-{acfg.gl_iters}", flush=True)
 
     ops.reset_launches()
     torch.cuda.synchronize()
@@ -205,11 +374,11 @@ def main() -> None:
     ])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = ops.launch_counts()
-    print(f"slice wall {wall:.3f} s: {len(WAV_SAMPLES) / wall:.3f} utterances/s, "
-          f"{out['n_wavs'] / wall:.3f} wav/s; launches {launches}", flush=True)
-    for name, count in launches.items():
-        check(count > 0, f"kernel {name} was not launched on the conversion path")
+    conv_launches = ops.launch_counts()
+    print(f"conversion wall {wall:.3f} s: {len(WAV_SAMPLES) / wall:.3f} utterances/s, "
+          f"{out['n_wavs'] / wall:.3f} wav/s; launches {conv_launches}", flush=True)
+    for name in ("frontend", "gru", "griffin_lim"):
+        check(conv_launches[name] > 0, f"kernel {name} was not launched on the conversion path")
 
     for i, ns in enumerate(WAV_SAMPLES):
         t = 1 + ns // acfg.hop_length
@@ -239,31 +408,151 @@ def main() -> None:
         re, im = audio.stft(torch.from_numpy(pcm.astype(np.float32) / 32768.0)[None], acfg)
         return torch.sqrt(re * re + im * im)
 
-    pcm_rel = max(
-        (torch.linalg.norm(spec(ref["cuda"][1][k][0]) - spec(ref["cpu"][1][k][0]))
-         / torch.linalg.norm(spec(ref["cpu"][1][k][0]))).item()
-        for k in range(len(TARGETS))
-    )
+    pcm_rel = max(rel_l2(spec(ref["cuda"][1][k][0]), spec(ref["cpu"][1][k][0])) for k in range(len(TARGETS)))
     print(f"reference (utt{len(WAV_SAMPLES) - 1}, GL-4, card vs CPU plain): unit agreement "
           f"{agree:.6f} (>= 0.999)  PCM STFT-magnitude rel-L2 {pcm_rel:.3e} (<= 1e-2)")
     check(agree >= 0.999, f"units on the card disagree with the CPU reference: {agree}")
     check(pcm_rel <= 1e-2, f"audio on the card disagrees with the CPU reference: {pcm_rel}")
+
+    # ---------------------------------------------- training path, end to end
+    train = train_path(OUT / "train")
+    by_path = {"conversion": conv_launches, "training": train.pop("launches"),
+               "convert_after_training": train.pop("convert_launches")}
+    step_check = card_vs_cpu_steps()
     check("jax" not in sys.modules, "jax was imported")
 
-    kernels = [
-        dict(name=name, route="cuda", source=f"{SRC}/{name}.cu", replaces=REPLACES[name],
-             launches=launches[name], max_abs_err=results[name]["max_abs_err"],
-             ms=results[name]["ms"], plain_ms=results[name]["plain_ms"])
-        for name in ops.KERNELS
-    ]
+    kernels = []
+    for name in ops.KERNELS:
+        r = results[name]
+        path = "training" if name == "gru_bwd" else "conversion"
+        kernels.append(dict(
+            name=name, route="cuda", source=f"{SRC}/{name}.cu", replaces=REPLACES[name],
+            launches=by_path[path][name], launches_path=path,
+            launches_by_path={p: c[name] for p, c in by_path.items()}, max_abs_err=r["max_abs_err"],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"]))
     (OUT / "result.json").write_text(json.dumps(
-        dict(kernels=kernels, slice_wall_s=wall, utterances_per_s=len(WAV_SAMPLES) / wall,
+        dict(kernels=kernels, launches_by_path=by_path, conversion_wall_s=wall,
+             utterances_per_s=len(WAV_SAMPLES) / wall,
+             gru_like_for_like=results["gru_vs_cudnn"],
              gl_rel_l2=results["griffin_lim"]["rel_l2"], reference_unit_agreement=agree,
-             reference_pcm_rel_l2=pcm_rel, card=card_line()), indent=2) + "\n")
+             reference_pcm_rel_l2=pcm_rel, training=train,
+             card_vs_cpu_steps=step_check, card=card_line()), indent=2) + "\n")
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
+
+
+def train_path(work: Path) -> dict:
+    """preprocess -> train1 -> train1 (resumed) -> train2 -> export through
+    the CLI at flagship width on the card, kernel launches counted from just
+    before preprocess to just after export; then a convert with the trained
+    bundle, its launches counted apart."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from zerospeech_tts_tpu_torch import cli, ops
+    from zerospeech_tts_tpu_torch.config import DEFAULT_HPS_PATH, load_configs
+    from zerospeech_tts_tpu_torch.convert import read_units
+    from zerospeech_tts_tpu_torch.train import init_state
+    from zerospeech_tts_tpu_torch.tools.workload import write_train_corpus
+
+    shutil.rmtree(work, ignore_errors=True)
+    corpus = write_train_corpus(work, seed=0)
+    ds, ck = str(work / "ds"), str(work / "ck")
+    hps, _ = load_configs(DEFAULT_HPS_PATH)
+    common = ["--device", "cuda"]
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pre = cli.main(["preprocess", "--corpus", str(corpus), "-dataset_path", ds, *common])
+    r1 = cli.main(["train1", "-dataset_path", ds, "-ckpt_dir", ck, "--iters-override", "4", *common])
+    state1 = r1.pop("state")
+    r1b = cli.main(["train1", "-dataset_path", ds, "-ckpt_dir", ck, "--iters-override", "5", *common])
+    r1b.pop("state")
+    r2 = cli.main(["train2", "-dataset_path", ds, "-ckpt_dir", ck, "--iters-override", "1",
+                   "--targets", "V001", "V002", *common])
+    state2 = r2.pop("state")
+    ex = cli.main(["export", "-dataset_path", ds, "-ckpt_dir", ck, "--out", str(work / "bundle"), *common])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    print(f"training path wall {wall:.2f} s; launches {launches}", flush=True)
+    for name in ("frontend", "gru", "gru_bwd"):
+        check(launches[name] > 0, f"kernel {name} was not launched on the training path")
+
+    # the trained bundle converts: a path of its own, counted apart
+    ops.reset_launches()
+    cv = cli.main(["convert", "--from-export", str(work / "bundle"), "--from-wavs", str(corpus / "test"),
+                   "-result_dir", str(work / "out"), "--target", "V001", "--gl-iters", "8", *common])
+    torch.cuda.synchronize()
+    cv_launches = ops.launch_counts()
+    print(f"convert after training: launches {cv_launches}", flush=True)
+    for name in ("frontend", "gru", "griffin_lim"):
+        check(cv_launches[name] > 0, f"kernel {name} was not launched converting with the trained bundle")
+
+    check(r1["step"] == 12 and r1["resumed_from"] is None, f"train1 ran to step {r1['step']}")
+    check(r1b["resumed_from"] == 12 and r1b["step"] == 15,
+          f"resumed train1: from {r1b['resumed_from']} to {r1b['step']} (want 12 -> 15)")
+    check(r2["step"] == 15 + hps.n_critic + 1 and ex["step"] == r2["step"], f"train2/export step {r2['step']}")
+    phases = {**r1["phases"], **{f"{k} (resumed)": v for k, v in r1b["phases"].items()},
+              **r2["phases"]}
+    check(set(phases) == {"pretrain_AE", "pretrain_C", "train", "train (resumed)", "patchGAN"},
+          f"phases run: {sorted(phases)}")
+    for k, v in phases.items():
+        print(f"  {k}: {v['steps']} steps, {v['seconds']:.3f} s, {v['steps_per_s']:.3f} steps/s; "
+              + " ".join(f"{m}={x:.4g}" for m, x in v["last"].items()))
+        check(all(np.isfinite(x) for x in v["last"].values()), f"{k}: non-finite losses {v['last']}")
+    init = init_state(hps, device="cuda")
+    for name in ("enc", "dec"):
+        for (pname, p), p0 in zip(state1.modules[name].named_parameters(), init.modules[name].parameters()):
+            check(p.grad is not None and bool(p.grad.abs().sum() > 0), f"{name}.{pname} got no gradient")
+            check(not torch.equal(p.detach(), p0.detach()), f"{name}.{pname} did not change in train1")
+    for gname in ("enc.rnn.fwd.wh", "enc.rnn.bwd.wh", "dec.rnn.wh"):
+        mod, rest = gname.split(".", 1)
+        p = state1.modules[mod].get_parameter(rest)
+        print(f"  {gname}: |grad| {p.grad.norm().item():.4e}, moved "
+              f"{(p - init.modules[mod].get_parameter(rest)).norm().item():.4e}")
+    for (pname, p), p0 in zip(state2.dis.named_parameters(), init.dis.parameters()):
+        if pname != "patch_head.bias":  # cancels in mean(real) - mean(fake): zero gradient
+            check(not torch.equal(p.detach(), p0.detach()), f"dis.{pname} did not change in train2")
+    u = read_units(work / "out" / "units" / "T001_0.txt")
+    check(cv["n_wavs"] == 1 and u.shape[1] == hps.emb_size, f"convert after training: {cv}, units {u.shape}")
+    print(f"  set-up (corpus to the card, model init): train1 {r1['setup_s']:.2f} s, train2 "
+          f"{r2['setup_s']:.2f} s; preprocess {pre['seconds']:.2f} s for {pre['counts']} utterances",
+          flush=True)
+    return dict(launches=launches, convert_launches=cv_launches, wall_s=wall, phases=phases,
+                setup_s=[r1["setup_s"], r2["setup_s"]], preprocess_s=pre["seconds"])
+
+
+def card_vs_cpu_steps() -> dict:
+    """A pretrain_AE step and a train step at flagship width with batch 4
+    on the card and on the CPU, from the same state, the same draws and
+    the card's hard decisions (tools/step_parity.py, seed 0): losses
+    within 1e-4 relative, each module's gradient within 1e-3 rel-L2, and
+    at most 1e-5 of the CPU's own decisions differing from the card's
+    (an element within f32 rounding of a decision: 0-3 of 3.7-5.2 M over
+    8 seeds on an H100), so a fault that moves many decisions on the card
+    is not copied onto the CPU unseen."""
+    from zerospeech_tts_tpu_torch.tools.step_parity import card_vs_cpu
+
+    report = card_vs_cpu(seed=0)
+    for step, r in report.items():
+        print(f"card vs CPU {step} (flagship, batch 4, seed 0): loss rel "
+              + " ".join(f"{k} {v:.2e}" for k, v in r["loss_rel"].items())
+              + " (<= 1e-4); grad rel-L2 " + " ".join(f"{k} {v:.2e}" for k, v in r["grad_rel_l2"].items())
+              + f" (<= 1e-3); CPU decisions replayed from the card: {r['flips']} of "
+              f"{r['decisions']} differed (<= 1e-5 of them)", flush=True)
+        want = {"enc", "dec"} | ({"clf"} if step == "step_train" else set())
+        check(set(r["modules"]) == want, f"{step}: gradients of {r['modules']}")
+        check(r["decisions"] > 0 and r["flips"] <= 1e-5 * r["decisions"],
+              f"{step}: {r['flips']} of {r['decisions']} CPU decisions differ from the card's")
+        check(max(r["grad_rel_l2"].values()) <= 1e-3, f"{step} gradients: {r['grad_rel_l2']}")
+        check(max(r["loss_rel"].values()) <= 1e-4, f"{step} losses: {r['loss_rel']}")
+    return report
 
 
 if __name__ == "__main__":

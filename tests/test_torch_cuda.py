@@ -99,10 +99,80 @@ def test_griffin_lim_kernel_matches_plain(cuda, b, t, cfg_name):
         assert row < 1e-3, row
 
 
+def _gru_inputs(b, t, h, seed, device):
+    gen = torch.Generator().manual_seed(seed)
+    xw = torch.randn(b, t, 3 * h, generator=gen)
+    wh = torch.randn(h, 3 * h, generator=gen) / math.sqrt(h)
+    bh = 0.1 * torch.randn(3 * h, generator=gen)
+    return xw.to(device), wh.to(device), bh.to(device)
+
+
+def _rel(a, b):
+    return (torch.linalg.norm(a - b) / torch.linalg.norm(b)).item()
+
+
+@pytest.mark.parametrize("b,t,h,reverse", [
+    (32, 128, 512, False),  # decoder, training
+    (64, 16, 512, False),   # encoder forward direction, training (pairs on)
+    (64, 16, 512, True),    # encoder backward direction
+    (3, 7, 40, False),      # ragged: B, H not multiples of the tiles
+])
+def test_gru_bwd_kernel_matches_plain(cuda, b, t, h, reverse):
+    """Kernel 3 against gru_bwd_plain on the same card: dxw max abs <= 1e-4,
+    dwh and dbh rel-L2 <= 1e-4 (f32 sums over B*T rows in another order)."""
+    xw, wh, bh = _gru_inputs(b, t, h, t + h, cuda)
+    ys = gru.gru_scan(xw, wh, bh, reverse=reverse)
+    dys = torch.randn(b, t, h, generator=torch.Generator().manual_seed(1)).to(cuda)
+    if reverse:  # as GRUScan.backward conjugates a reverse scan
+        xw, ys, dys = (a.flip(1).contiguous() for a in (xw, ys, dys))
+    before = gru.bwd_launches
+    dxw, dwh, dbh = gru.gru_bwd(xw, wh, bh, ys, dys)
+    torch.cuda.synchronize()
+    assert gru.bwd_launches == before + 1
+    rxw, rwh, rbh = gru.gru_bwd_plain(xw, wh, bh, ys, dys)
+    assert (dxw - rxw).abs().max().item() <= 1e-4
+    assert _rel(dwh, rwh) <= 1e-4 and _rel(dbh, rbh) <= 1e-4
+
+
+def test_gru_scan_grads_match_cudnn_gru(cuda):
+    """GRUScan (kernels 2 and 3) against cuDNN nn.GRU with the same weights
+    (weight_ih = wi^T, weight_hh = wh^T, bias_ih = bi, bias_hh = bh; the
+    same r, z, n gate math), decoder shape: rel-L2 <= 1e-4 on every
+    gradient."""
+    b, t, i, h = 32, 128, 640, 512
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(b, t, i, generator=gen).to(cuda)
+    wi = (torch.randn(i, 3 * h, generator=gen) / math.sqrt(i)).to(cuda)
+    bi = (0.1 * torch.randn(3 * h, generator=gen)).to(cuda)
+    _, wh, bh = _gru_inputs(1, 1, h, 5, cuda)
+    dys = torch.randn(b, t, h, generator=gen).to(cuda)
+    ours = [a.clone().requires_grad_(True) for a in (x, wi, bi, wh, bh)]
+    ys = gru.GRUScan.apply((ours[0] @ ours[1] + ours[2]).contiguous(), ours[3], ours[4], False)
+    ys.backward(dys)
+    ref = torch.nn.GRU(i, h, batch_first=True).to(cuda)
+    with torch.no_grad():
+        ref.weight_ih_l0.copy_(wi.T)
+        ref.weight_hh_l0.copy_(wh.T)
+        ref.bias_ih_l0.copy_(bi)
+        ref.bias_hh_l0.copy_(bh)
+    xr = x.clone().requires_grad_(True)
+    yr, _ = ref(xr)
+    yr.backward(dys)
+    assert _rel(ys.detach(), yr.detach()) <= 1e-4
+    for g, r in ((ours[0].grad, xr.grad), (ours[1].grad, ref.weight_ih_l0.grad.T),
+                 (ours[2].grad, ref.bias_ih_l0.grad), (ours[3].grad, ref.weight_hh_l0.grad.T),
+                 (ours[4].grad, ref.bias_hh_l0.grad)):
+        assert _rel(g, r) <= 1e-4
+
+
 def test_wrappers_reject_bad_cuda_inputs(cuda):
     cfg = AudioConfig()
     with pytest.raises(ValueError):  # not contiguous
         griffin_lim.griffin_lim(torch.rand(1, cfg.n_freq, 20, device=cuda).transpose(1, 2), cfg, 1)
+    with pytest.raises(ValueError):  # ys of the wrong shape
+        gru.gru_bwd(*(torch.rand(2, 3, 12, device=cuda), torch.rand(4, 12, device=cuda),
+                      torch.rand(12, device=cuda), torch.rand(2, 3, 5, device=cuda),
+                      torch.rand(2, 3, 4, device=cuda)))
     with pytest.raises(ValueError):  # wrong dtype
         gru.gru_scan(torch.rand(2, 3, 12, device=cuda, dtype=torch.float64),
                      torch.rand(4, 12, device=cuda), torch.rand(12, device=cuda))

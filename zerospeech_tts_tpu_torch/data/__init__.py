@@ -1,1 +1,2 @@
-"""Data helpers of the PyTorch port (per-speaker normalization)."""
+"""Data of the PyTorch port: corpus builder, on-device arena sampler and
+per-speaker normalization."""

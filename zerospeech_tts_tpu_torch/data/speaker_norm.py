@@ -4,9 +4,8 @@ normalization"; port of ``zerospeech_tts_tpu/data/speaker_norm.py``).
 Conversion z-scores the source features with the source speaker's (or the
 global) statistics and denormalizes the decoder output with the TARGET
 speaker's statistics before Griffin-Lim. Unseen speakers fall back to the
-global train statistics. ``h5py`` is imported inside :meth:`load` only:
-export bundles carry their statistics in ``stats.npz``, and a serving host
-needs no HDF5 stack.
+global train statistics. The port's corpus directory (data/corpus.py) and
+export bundles carry them in ``stats.npz`` (:meth:`load_corpus`).
 """
 
 from __future__ import annotations
@@ -27,21 +26,26 @@ class SpeakerStats:
         assert GLOBAL_KEY in mean, "global fallback stats missing"
 
     @classmethod
-    def load(cls, h5_path: str | Path, feat: str = "lin") -> "SpeakerStats":
-        import h5py
-
+    def load_corpus(cls, corpus_dir: str | Path, feat: str = "lin") -> "SpeakerStats":
+        """Statistics of one feature from a port corpus directory's
+        ``stats.npz`` (std floored at 1e-4, as the JAX package's h5 loader
+        floors it)."""
+        path = Path(corpus_dir) / "stats.npz"
+        if not path.exists():
+            raise FileNotFoundError(f"{path} missing: rebuild the corpus (preprocess)")
         mean, std = {}, {}
-        with h5py.File(h5_path, "r") as f:
-            if "stats" not in f:
-                raise ValueError(f"no stats group in {h5_path}; rebuild the corpus")
-            for spk in f["stats"]:
-                mean[spk] = f[f"stats/{spk}/{feat}_mean"][:]
-                std[spk] = np.maximum(f[f"stats/{spk}/{feat}_std"][:], 1e-4)
-        if GLOBAL_KEY not in mean:
-            # derive a fallback from the speaker average (older corpora)
-            mean[GLOBAL_KEY] = np.mean(list(mean.values()), axis=0)
-            std[GLOBAL_KEY] = np.mean(list(std.values()), axis=0)
+        with np.load(path) as z:
+            for key in z.files:
+                spk, kind = key.rsplit("|", 1)
+                if kind == f"{feat}_mean":
+                    mean[spk] = z[key]
+                elif kind == f"{feat}_std":
+                    std[spk] = np.maximum(z[key], 1e-4)
         return cls(mean, std)
+
+    def normalize(self, feats: np.ndarray, speaker: str) -> np.ndarray:
+        m, s = self.get(speaker)
+        return (feats - m) / s
 
     def get(self, speaker: str) -> tuple[np.ndarray, np.ndarray]:
         if speaker in self.mean:

@@ -23,7 +23,7 @@ import numpy as np
 
 from zerospeech_tts_tpu_torch.config import AudioConfig, Hps, load_configs
 from zerospeech_tts_tpu_torch.data.speaker_norm import SpeakerStats
-from zerospeech_tts_tpu_torch.params import _strip_params, flatten, unflatten
+from zerospeech_tts_tpu_torch.params import _strip_params, flatten, to_flax, unflatten
 
 EXPORT_VERSION = 1
 
@@ -79,6 +79,21 @@ def save_export(
         "n_speakers": len(speakers),
         "step": step,
     }
+
+
+def export_state(
+    out_dir: str | Path,
+    hps: Hps,
+    acfg: AudioConfig,
+    state,
+    speakers: dict[str, int],
+    stats: SpeakerStats | None = None,
+) -> dict:
+    """The bundle of a training state (train/solver.py ``TrainState``):
+    its encoder and decoder at its step."""
+    tree = to_flax(state.enc.state_dict(), state.dec.state_dict())
+    return save_export(out_dir, hps, acfg, tree["enc"], tree["dec"], speakers, stats=stats,
+                       step=state.step)
 
 
 def load_export(bundle_dir: str | Path) -> ExportBundle:

@@ -10,6 +10,9 @@ length-bucketed batches: pad rows are re-filled with the reflection of the
 true rows before every conv stage and the backward GRU starts at each
 row's true tail. With the bucket rule pad == 0 or pad >= 4 input frames
 (Converter._MIN_PAD) the true rows equal an exact-length run.
+
+``train=True`` applies ``enc_dp`` dropout after each residual stage (JAX
+encoder.py:59), drawn from ``noise`` (models/layers.py).
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from zerospeech_tts_tpu_torch.config import Hps
-from zerospeech_tts_tpu_torch.models.layers import BiGRU, ConvBank, ConvNorm, mirror_fill_time
+from zerospeech_tts_tpu_torch.models.layers import BiGRU, ConvBank, ConvNorm, dropout, mirror_fill_time
 
 
 class Encoder(nn.Module):
@@ -37,7 +40,7 @@ class Encoder(nn.Module):
         self.rnn = BiGRU(h.emb_size, h.emb_size // 2)
         self.head = nn.Linear(h.emb_size, 2 * h.emb_size)
 
-    def forward(self, x: torch.Tensor, lengths=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, lengths=None, train: bool = False, noise=None) -> torch.Tensor:
         h = self.hps
         L = lengths
 
@@ -53,6 +56,7 @@ class Encoder(nn.Module):
                 L = (L + 1) // 2  # ceil: stride-2 VALID conv over reflect pad
             z = getattr(self, f"res_{i}")(fill(z, L))
             y = z + y[:, ::2, :]  # strided residual
+            y = dropout(y, h.enc_dp, noise if train else None)
         y = F.leaky_relu(self.dense(y), h.ns)
         y = self.rnn(y, lengths=L)
         logits = self.head(y)

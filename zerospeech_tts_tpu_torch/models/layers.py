@@ -7,15 +7,61 @@ layout; convolutions transpose to [B, C, T] inside. Module and parameter
 names follow the flax tree (``bank/bank_1/Conv_0/kernel`` is
 ``bank.bank_1.Conv_0.weight`` here) so ``params.from_flax`` is a rename
 plus the layout transposes.
+
+Training draws its randomness (dropout masks, Gumbel noise, the solver's
+target speakers and penalty mixes) as uniforms from a noise source:
+:class:`Noise` (a ``torch.Generator``) or :class:`FedNoise` (given arrays,
+e.g. the ones JAX's key derivation produced).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from zerospeech_tts_tpu_torch.ops.gru import gru_scan
+from zerospeech_tts_tpu_torch.ops.gru import GRUScan, gru_scan
+
+
+class Noise:
+    """Uniform [0, 1) draws from one ``torch.Generator``. Draws are made on
+    the generator's device and moved to the device asked for, so a CPU
+    generator gives the same draws to a run on any device."""
+
+    def __init__(self, gen: torch.Generator):
+        self.gen = gen
+
+    def uniform(self, shape, device) -> torch.Tensor:
+        return torch.rand(tuple(shape), generator=self.gen, device=self.gen.device).to(device)
+
+
+class FedNoise:
+    """Uniform draws given in advance, returned in call order (tests feed
+    the arrays JAX drew; each must have the shape asked for)."""
+
+    def __init__(self, arrays):
+        self.arrays = list(arrays)
+
+    def uniform(self, shape, device) -> torch.Tensor:
+        if not self.arrays:
+            raise RuntimeError(f"FedNoise ran out of draws (asked for {tuple(shape)})")
+        a = torch.tensor(np.asarray(self.arrays.pop(0)), dtype=torch.float32)
+        if tuple(a.shape) != tuple(shape):
+            raise ValueError(f"fed draw has shape {tuple(a.shape)}, asked for {tuple(shape)}")
+        return a.to(device)
+
+
+def dropout(x: torch.Tensor, rate: float, noise=None) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep each element with probability 1 - rate
+    (uniform < 1 - rate, as ``jax.random.bernoulli``), scale kept ones by
+    1 / (1 - rate). ``noise=None`` (eval) or rate 0 is the identity."""
+    if noise is None or rate == 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep = noise.uniform(x.shape, x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), device=x.device))
 
 
 def reflect_pad_time(x: torch.Tensor, kernel_size: int) -> torch.Tensor:
@@ -88,7 +134,9 @@ class GRU(nn.Module):
     """GRU over time with the input projections for ALL steps hoisted into
     one matmul (``wi``) and the recurrence in the GRU kernel
     (ops/gru.py). Parameters follow the flax layout: ``wh`` [H, 3H], ``bh``
-    [3H], gate order r, z, n."""
+    [3H], gate order r, z, n. Under grad the scan goes through
+    :class:`GRUScan` (kernel 3 backward); a masked scan is inference-only
+    and raises under grad, as in the JAX package."""
 
     def __init__(self, in_features: int, hidden: int, reverse: bool = False):
         super().__init__()
@@ -99,6 +147,13 @@ class GRU(nn.Module):
 
     def forward(self, x: torch.Tensor, lengths=None) -> torch.Tensor:
         xw = self.wi(x).contiguous()
+        if torch.is_grad_enabled() and (xw.requires_grad or self.wh.requires_grad):
+            if lengths is not None:
+                raise NotImplementedError(
+                    "a masked (length-bucketed) GRU scan is inference-only: it has "
+                    "no backward pass; run it under torch.no_grad()"
+                )
+            return GRUScan.apply(xw, self.wh, self.bh, self.reverse)
         if lengths is not None:
             lengths = lengths.to(device=x.device, dtype=torch.int32).contiguous()
         return gru_scan(xw, self.wh, self.bh, lengths, reverse=self.reverse)

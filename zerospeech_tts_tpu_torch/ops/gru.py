@@ -1,6 +1,7 @@
-"""Kernel 2: GRU recurrence over precomputed input projections (port of
-``zerospeech_tts_tpu/ops/pallas_gru.py::pallas_gru_scan``; CUDA source
-``csrc/gru.cu``).
+"""Kernels 2 and 3: the GRU recurrence over precomputed input projections
+and its backward pass (ports of ``zerospeech_tts_tpu/ops/pallas_gru.py``
+``pallas_gru_scan`` and ``_gru_bwd_call``; CUDA sources ``csrc/gru.cu`` and
+``csrc/gru_bwd.cu``).
 
 Cell math (gate order r, z, n; models/layers.py GRU):
 
@@ -12,6 +13,17 @@ Cell math (gate order r, z, n; models/layers.py GRU):
 so each row's first real step sees h0 = 0 (padding-invariant bucketed
 encoding). :func:`gru_scan` launches the kernel on a CUDA tensor and runs
 :func:`gru_scan_plain` on a CPU tensor; any other device raises.
+
+Training differentiates through :class:`GRUScan`: kernel 2 forward,
+kernel 3 (:func:`gru_bwd`, plain version :func:`gru_bwd_plain`) backward.
+Backward math (``pallas_gru.py:195-207``), in reverse time with h_{t-1} =
+ys shifted right by one step (h0 = 0) and r, z, n recomputed from it:
+
+    dh    += dys_t                   (carry from t+1 starts at 0)
+    dn^    = dh (1-z) (1-n^2);       dz^ = dh (h_{t-1} - n) z (1-z)
+    dr^    = dn^ hw_n r (1-r);       dxw_t = [dr^, dz^, dn^]
+    dhw    = [dr^, dz^, dn^ r];      dh_{t-1} = dh z + dhw wh^T
+    dwh   += h_{t-1}^T dhw;          dbh += sum_B dhw
 """
 
 from __future__ import annotations
@@ -21,6 +33,7 @@ import torch
 from zerospeech_tts_tpu_torch.ops import build
 
 launches = 0  # kernel launches through gru_scan (one per whole recurrence)
+bwd_launches = 0  # kernel-3 launches through gru_bwd (one per whole backward pass)
 
 
 def _check_args(xw, wh, bh, lengths, reverse):
@@ -81,3 +94,96 @@ def gru_scan(xw, wh, bh, lengths=None, *, reverse: bool = False):
     global launches
     launches += 1
     return ys
+
+
+def _bwd_check(xw, wh, bh, ys, dys):
+    b, t, h = _check_args(xw, wh, bh, None, False)
+    if tuple(ys.shape) != (b, t, h) or tuple(dys.shape) != (b, t, h):
+        raise ValueError(f"shapes ys {tuple(ys.shape)}, dys {tuple(dys.shape)}: expected {(b, t, h)}")
+    return b, t, h
+
+
+def gru_bwd_plain(xw, wh, bh, ys, dys):
+    """Plain PyTorch version of kernel 3, the backward pass of the unmasked
+    forward-time scan, step by step: (xw [B, T, 3H], wh [H, 3H], bh [3H],
+    ys, dys [B, T, H]) -> (dxw [B, T, 3H], dwh [H, 3H], dbh [3H])."""
+    b, t, h = _bwd_check(xw, wh, bh, ys, dys)
+    hprev = torch.cat([ys.new_zeros(b, 1, h), ys[:, :-1]], dim=1)
+    dh = xw.new_zeros(b, h)
+    dxw = torch.empty_like(xw)
+    dwh = wh.new_zeros(h, 3 * h)
+    dbh = bh.new_zeros(3 * h)
+    for ti in range(t - 1, -1, -1):
+        hp = hprev[:, ti]
+        hw = hp @ wh + bh
+        xr, xz, xn = xw[:, ti].split(h, dim=-1)
+        hr, hz, hn = hw.split(h, dim=-1)
+        r = torch.sigmoid(xr + hr)
+        z = torch.sigmoid(xz + hz)
+        n = torch.tanh(xn + r * hn)
+        dh = dh + dys[:, ti]
+        dn = dh * (1.0 - z) * (1.0 - n * n)
+        dz = dh * (hp - n) * z * (1.0 - z)
+        dr = dn * hn * r * (1.0 - r)
+        dxw[:, ti] = torch.cat([dr, dz, dn], dim=-1)
+        dhw = torch.cat([dr, dz, dn * r], dim=-1)
+        dh = dh * z + dhw @ wh.T
+        dwh = dwh + hp.T @ dhw
+        dbh = dbh + dhw.sum(0)
+    return dxw, dwh, dbh
+
+
+def gru_bwd(xw, wh, bh, ys, dys):
+    """Same contract as :func:`gru_bwd_plain`; kernel 3 (csrc/gru_bwd.cu)
+    on a CUDA tensor: a parallel pass for hw = h_{t-1} wh + bh, T step
+    launches for the serial dh recurrence, then a tiled reduction for dwh
+    and a column sum for dbh, all issued from one C call."""
+    if xw.device.type == "cpu":
+        return gru_bwd_plain(xw, wh, bh, ys, dys)
+    b, t, h = _bwd_check(xw, wh, bh, ys, dys)
+    for arr, what, shape in ((xw, "xw", (b, t, 3 * h)), (wh, "wh", (h, 3 * h)), (bh, "bh", (3 * h,)),
+                             (ys, "ys", (b, t, h)), (dys, "dys", (b, t, h))):
+        build.require(arr, f"gru_bwd {what}", shape, device=xw.device)
+    dxw = torch.empty(b, t, 3 * h, device=xw.device)
+    dwh = torch.empty(h, 3 * h, device=xw.device)
+    dbh = torch.empty(3 * h, device=xw.device)
+    hw = torch.empty(b, t, 3 * h, device=xw.device)  # scratch: h_{t-1} wh + bh
+    dhw = torch.empty(b, t, 3 * h, device=xw.device)  # scratch: recurrent-gate grads
+    dh = torch.empty(2, b, h, device=xw.device)  # scratch: ping-pong dh carry
+    lib = build.load("gru_bwd")
+    fn = build.bind(lib, "zs_gru_bwd", 11, 3)
+    err = fn(
+        xw.data_ptr(), wh.data_ptr(), bh.data_ptr(), ys.data_ptr(), dys.data_ptr(),
+        dxw.data_ptr(), dwh.data_ptr(), dbh.data_ptr(), hw.data_ptr(), dhw.data_ptr(),
+        dh.data_ptr(), b, t, h, build.stream_of(xw),
+    )
+    build.check(lib, err, "gru_bwd kernel")
+    global bwd_launches
+    bwd_launches += 1
+    return dxw, dwh, dbh
+
+
+class GRUScan(torch.autograd.Function):
+    """Differentiable unmasked GRU scan (the counterpart of
+    ``pallas_gru.py::gru_scan_diff``): kernel 2 forward, kernel 3 backward
+    on CUDA tensors, their plain versions on CPU tensors. A reverse scan
+    conjugates the backward pass by time flips."""
+
+    @staticmethod
+    def forward(ctx, xw, wh, bh, reverse: bool):
+        xw = xw.contiguous()
+        ys = gru_scan(xw, wh, bh, reverse=reverse)
+        ctx.reverse = reverse
+        ctx.save_for_backward(xw, wh, bh, ys)
+        return ys
+
+    @staticmethod
+    def backward(ctx, dys):
+        xw, wh, bh, ys = ctx.saved_tensors
+        dys = dys.contiguous()
+        if ctx.reverse:
+            xw, ys, dys = (a.flip(1).contiguous() for a in (xw, ys, dys))
+        dxw, dwh, dbh = gru_bwd(xw, wh, bh, ys, dys)
+        if ctx.reverse:
+            dxw = dxw.flip(1)
+        return dxw, dwh, dbh, None

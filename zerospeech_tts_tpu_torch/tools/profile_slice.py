@@ -21,20 +21,10 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
-import time
 from pathlib import Path
 
 import numpy as np
 import torch
-
-
-def _wall(fn) -> float:
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    return time.perf_counter() - t0
 
 
 def _quartiles(xs) -> dict:
@@ -60,17 +50,15 @@ def main(argv=None) -> dict:
     from zerospeech_tts_tpu_torch.ops import frontend, griffin_lim
     from zerospeech_tts_tpu_torch.params import from_flax
     from zerospeech_tts_tpu_torch.tools.workload import (
-        TARGETS, WAV_SAMPLES, cuda_ms, speechlike, write_workload,
+        TARGETS, WAV_SAMPLES, card, cuda_ms, device_rows, speechlike, sync_wall, write_workload,
     )
 
     work = Path(args.work)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60)
-    res: dict = {"card": smi.stdout.strip()}
+    res: dict = {"card": card()}
     _, _, speakers, _ = write_workload(work)
 
     def cli_run(tag):
-        return _wall(lambda: cli.main([
+        return sync_wall(lambda: cli.main([
             "convert", "--from-export", str(work / "bundle"), "--from-wavs", str(work / "wavs"),
             "-result_dir", str(work / tag), "--target", *TARGETS, "--device", "cuda"]))
 
@@ -87,10 +75,10 @@ def main(argv=None) -> dict:
         conv.convert_wavs_multi(ys, ids, tgt_names=list(TARGETS))
 
     run()
-    res["convert_wavs_multi_s"] = _quartiles([_wall(run) for _ in range(args.reps)])
+    res["convert_wavs_multi_s"] = _quartiles([sync_wall(run) for _ in range(args.reps)])
     conv.gl_iters = 0
     run()
-    res["convert_wavs_multi_gl0_s"] = _quartiles([_wall(run) for _ in range(3)])
+    res["convert_wavs_multi_gl0_s"] = _quartiles([sync_wall(run) for _ in range(3)])
     conv.gl_iters = b.acfg.gl_iters
 
     cfg = AudioConfig()
@@ -108,16 +96,9 @@ def main(argv=None) -> dict:
 
     ops.reset_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        res["profiled_wall_s"] = _wall(run)
+        res["profiled_wall_s"] = sync_wall(run)
     res["profiled_launches"] = ops.launch_counts()
-    rows = []
-    for e in prof.key_averages():
-        dev = getattr(e, "self_device_time_total", None)
-        if dev is None:
-            dev = getattr(e, "self_cuda_time_total", 0)
-        if dev > 0 and not e.key.startswith(("aten::", "cuda")):
-            rows.append(dict(name=e.key[:100], ms=dev / 1e3, count=e.count))
-    rows.sort(key=lambda r: -r["ms"])
+    rows = device_rows(prof)
     res["device_ms"] = sum(r["ms"] for r in rows)
     res["device_busy_share"] = res["device_ms"] / 1e3 / res["profiled_wall_s"]
     res["device_kernels"] = rows[:30]

@@ -1,13 +1,19 @@
-"""The seeded flagship workload that ``chip_smoke.py`` and
-``tools/profile_slice.py`` run, and a CUDA-event timer.
+"""The seeded flagship workloads that ``chip_smoke.py``,
+``tools/profile_slice.py`` and ``tools/profile_train.py`` run, and the
+measurement helpers they share (CUDA-event timer, synchronized wall
+clock, card name, profiler kernel rows).
 
-The corpus is 8 synthetic "voiced" wavs of 1.5-6.4 s converted to V001 and
+Conversion: 8 synthetic "voiced" wavs of 1.5-6.4 s converted to V001 and
 V002 by a bundle at flagship width (``hps/zerospeech.json``) whose weights
-and speaker statistics come from a seed.
+and speaker statistics come from a seed. Training: a corpus of such wavs
+in the ZeroSpeech layout, 6 speakers (V001 and V002 among them) x 4
+utterances of 3-6 s.
 """
 
 from __future__ import annotations
 
+import subprocess
+import time
 from pathlib import Path
 
 import numpy as np
@@ -76,3 +82,60 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def sync_wall(fn) -> float:
+    """Host seconds of fn(), from a synchronized start to a synchronized end."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    return smi.stdout.strip()
+
+
+def device_rows(prof) -> list[dict]:
+    """The kernel rows of a ``torch.profiler`` trace, longest first:
+    {"name", "ms", "count"}. Host ranges (autograd functions) and GPU-side
+    user annotations (``Optimizer.step#Adam.step``, the name of a host
+    range) are left out: they span kernels that have rows of their own."""
+    from torch.autograd import DeviceType
+
+    events = prof.key_averages()
+    host_keys = {e.key for e in events if e.device_type != DeviceType.CUDA}
+    rows = []
+    for e in events:
+        dev = getattr(e, "self_device_time_total", None)
+        if dev is None:
+            dev = getattr(e, "self_cuda_time_total", 0)
+        if (dev > 0 and e.device_type == DeviceType.CUDA and e.key not in host_keys
+                and not getattr(e, "is_user_annotation", False)):
+            rows.append(dict(name=e.key[:100], ms=dev / 1e3, count=e.count))
+    return sorted(rows, key=lambda r: -r["ms"])
+
+
+TRAIN_SPEAKERS = ("S001", "S002", "S003", "S004", "V001", "V002")
+
+
+def write_train_corpus(out: str | Path, seed: int = 0, n_utts: int = 4) -> Path:
+    """``<out>/corpus`` in the ZeroSpeech layout (train/unit/S*_<i>.wav,
+    train/voice/V*_<i>.wav, test/T001_0.wav), seeded wavs of 3-6 s."""
+    from zerospeech_tts_tpu_torch.dsp.wavio import save_wav
+
+    root = Path(out) / "corpus"
+    rng = np.random.default_rng(seed)
+    for si, spk in enumerate(TRAIN_SPEAKERS):
+        sub = "voice" if spk.startswith("V") else "unit"
+        for i in range(n_utts):
+            n = int(rng.uniform(3.0, 6.0) * 16000)
+            save_wav(root / "train" / sub / f"{spk}_{i}.wav", speechlike(n, (7 * si + i + seed) % 24), 16000)
+    save_wav(root / "test" / "T001_0.wav", speechlike(52000, 1000 + seed), 16000)
+    return root
