@@ -12,12 +12,18 @@
    that call's time; holds GRUScan's gradients against cuDNN nn.GRU.
 4. Conversion path: converts a seeded 8-wav, 2-target corpus at flagship
    width (hps/zerospeech.json, random weights from a seed, GL-100) through
-   the port's CLI, counting kernel launches, checks the outputs, and holds
-   the card's conversion of one utterance against the plain CPU path.
+   the port's CLI, counting kernel launches and keeping each kernel's
+   inputs, checks the outputs, times kernels 1, 2 and 4 at the path's own
+   inputs (beside their plain versions and bounds), holds Griffin-Lim at
+   GL-100 on each of the path's buckets against its plain version (and
+   times the same recurrence as a loop of torch.fft calls, a yardstick),
+   and holds the card's conversion of one utterance against the plain CPU
+   path.
 5. Training path: a seeded 6-speaker wav corpus through the CLI at
    flagship width: preprocess -> train1 (4 iterations a phase) -> train1
-   resumed -> train2 (one GAN cycle) -> export, counting kernel launches,
-   then convert with the trained bundle, counted apart; checks losses,
+   resumed -> train2 (one GAN cycle) -> export, counting kernel launches
+   and timing kernel 3 at the path's own inputs, then convert with the
+   trained bundle, counted apart; checks losses,
    parameter updates and gradients; then one pretrain_AE and one train
    step on the card against the CPU from the same state and the same draws,
    with the CPU replaying the card's hard decisions and few of its own
@@ -25,7 +31,8 @@
 6. Prints the card (nvidia-smi name, power limit), one JSON line with the
    kernels' results (``launches``: the count on the path the kernel's slice
    ported, conversion or training; ``launches_by_path``: each path's own
-   count), and as the last line
+   count; ``ms``/``plain_ms``/``bound_ms`` at the test shapes, ``path_*``
+   summed over that path's calls), and as the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Any failed check raises, so the run exits non-zero and prints no last line.
@@ -40,6 +47,7 @@ import statistics
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
@@ -85,7 +93,8 @@ def bound(flops: float, nbytes: float) -> dict:
 def rfft_flops(n: int) -> float:
     """Operations of one real FFT (or inverse) of n points: 2.5 n log2 n,
     half the usual 5 n log2 n of a complex one. The least work of a DFT,
-    whatever the kernel does (kernels 1 and 4 run direct DFT products)."""
+    whatever the kernel does (kernel 1 runs direct DFT products, kernel 4
+    packed complex four-step FFTs)."""
     return 2.5 * n * math.log2(n)
 
 
@@ -93,6 +102,155 @@ def rel_l2(a, b) -> float:
     import torch
 
     return (torch.linalg.norm(a - b) / torch.linalg.norm(b)).item()
+
+
+# kernel -> (module in ops/, wrapper, plain version): both take the same arguments
+KERNEL_FNS = {
+    "frontend": ("frontend", "fused_frontend", "frontend_plain"),
+    "gru": ("gru", "gru_scan", "gru_scan_plain"),
+    "gru_bwd": ("gru", "gru_bwd", "gru_bwd_plain"),
+    "griffin_lim": ("griffin_lim", "griffin_lim", "griffin_lim_plain"),
+}
+
+
+def kernel_fns(name: str):
+    import importlib
+
+    mod_name, fn, plain = KERNEL_FNS[name]
+    mod = importlib.import_module(f"zerospeech_tts_tpu_torch.ops.{mod_name}")
+    return mod, getattr(mod, fn), getattr(mod, plain)
+
+
+@contextmanager
+def capture(names, store: dict):
+    """While active, each named kernel wrapper keeps a copy of the inputs
+    of its first call with each distinct signature (tensor shapes and the
+    other arguments) and counts the calls, in store[name][key] = [args,
+    kwargs, count], then calls through. The wrapper is replaced in every
+    module of the port that holds it, and restored on exit."""
+    import torch
+
+    def sig(a):
+        return ("tensor", tuple(a.shape)) if isinstance(a, torch.Tensor) else repr(a)
+
+    def keep(a):
+        return a.detach().clone() if isinstance(a, torch.Tensor) else a
+
+    patched = []
+    for name in names:
+        orig = kernel_fns(name)[1]
+        calls = store.setdefault(name, {})
+
+        def wrapper(*args, _orig=orig, _calls=calls, **kw):
+            key = tuple(sig(a) for a in args) + tuple((k, sig(v)) for k, v in sorted(kw.items()))
+            if key not in _calls:
+                _calls[key] = [[keep(a) for a in args], {k: keep(v) for k, v in kw.items()}, 0]
+            _calls[key][2] += 1
+            return _orig(*args, **kw)
+
+        for mod in list(sys.modules.values()):
+            if getattr(mod, "__name__", "").startswith("zerospeech_tts_tpu_torch") \
+                    and getattr(mod, KERNEL_FNS[name][1], None) is orig:
+                setattr(mod, KERNEL_FNS[name][1], wrapper)
+                patched.append((mod, KERNEL_FNS[name][1], orig))
+    try:
+        yield store
+    finally:
+        for mod, attr, orig in patched:
+            setattr(mod, attr, orig)
+
+
+def work(name: str, args, kw) -> tuple[float, float]:
+    """(FLOPs, bytes) of the least work of one call of a kernel's function
+    on these inputs: each input read once, each output written once; for
+    the frontend and Griffin-Lim an rfft or irfft of n_fft points per frame,
+    whatever the kernel runs."""
+    if name == "frontend":
+        ypad, cfg, t = args
+        b, nf, nm = ypad.shape[0], cfg.n_freq, cfg.n_mels
+        # a frame: window, rfft, |.|, mel product, both dB-norms
+        fl = b * t * (cfg.win_length + rfft_flops(cfg.n_fft) + 4 * nf + 2 * nf * nm + 5 * (nf + nm))
+        return fl, 4 * (ypad.numel() + nf * nm + cfg.win_length + b * t * (nf + nm))
+    if name == "gru":
+        xw, wh, bh = args[:3]
+        lengths = args[3] if len(args) > 3 else kw.get("lengths")
+        b, t, h3 = xw.shape
+        h = h3 // 3
+        steps = b * t if lengths is None else int(lengths.sum())  # masked steps only pass the state on
+        return 2 * steps * h * h3, 4 * (b * t * h3 + b * t * h + h * h3 + h3)
+    if name == "gru_bwd":
+        b, t, h3 = args[0].shape
+        h = h3 // 3
+        return 3 * 2 * b * t * h * h3, 4 * (2 * b * t * h3 + 2 * b * t * h + 2 * h * h3 + 2 * h3)
+    mag, cfg = args[:2]
+    n_iters = kw.get("n_iters", args[2] if len(args) > 2 else None)
+    n_iters = cfg.gl_iters if n_iters is None else n_iters
+    b, t, _ = mag.shape
+    win, hop = cfg.win_length, cfg.hop_length
+    # a frame: synthesis = irfft, window, overlap-add, wss scale; analysis =
+    # window, rfft, projection onto the magnitudes; the momentum per sample.
+    # One synthesis, then n_iters + 1 rounds of both, momentum in n_iters.
+    syn = rfft_flops(cfg.n_fft) + 2 * win + hop
+    ana = win + rfft_flops(cfg.n_fft) + 8 * cfg.n_freq
+    fl = b * t * (syn + (n_iters + 1) * (ana + syn) + n_iters * 3 * hop)
+    return fl, 4 * (mag.numel() + b * (t - 1) * hop)
+
+
+def path_times(name: str, calls: dict) -> dict:
+    """A kernel's time, its plain version's time and the bound, summed over
+    the calls of a main path: each distinct signature timed once and
+    weighted by its count."""
+    from zerospeech_tts_tpu_torch.tools.workload import cuda_ms
+
+    _, kfn, pfn = kernel_fns(name)
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, launches=0, shapes=[])
+    for args, kw, count in calls.values():
+        k_ms = cuda_ms(lambda: kfn(*args, **kw), 3)
+        p_ms = cuda_ms(lambda: pfn(*args, **kw), 1)
+        bnd = bound(*work(name, args, kw))["bound_ms"]
+        tot["ms"] += count * k_ms
+        tot["plain_ms"] += count * p_ms
+        tot["bound_ms"] += count * bnd
+        tot["launches"] += count
+        tot["shapes"].append(dict(shape=[tuple(a.shape) for a in args if hasattr(a, "shape")][0],
+                                  count=count, ms=k_ms, plain_ms=p_ms, bound_ms=bnd))
+    return tot
+
+
+def gl_fft_loop(mag, cfg, n_iters: int):
+    """The Griffin-Lim recurrence of ops/griffin_lim.py written as a loop
+    of torch.fft.rfft / irfft calls (cuFFT): a printed yardstick for
+    kernel 4, never called by the port."""
+    import numpy as np
+    import torch
+
+    from zerospeech_tts_tpu_torch.dsp import audio
+    from zerospeech_tts_tpu_torch.ops.griffin_lim import _trim, _wss_inv
+
+    b, t, _ = mag.shape
+    n, win, hop = cfg.n_fft, cfg.win_length, cfg.hop_length
+    r, lpad = win // hop, (n - win) // 2
+    window = torch.from_numpy(np.ascontiguousarray(audio._window(cfg)[lpad : lpad + win])).to(mag.device)
+    wss_inv = _wss_inv(cfg, t, str(mag.device))
+
+    def istft(spec):
+        frames = (torch.fft.irfft(spec, n=n)[..., lpad : lpad + win] * window).reshape(b, t, r, hop)
+        acc = mag.new_zeros(b, t - 1 + r, hop)
+        for k in range(r):
+            acc[:, k : k + t] += frames[:, :, k]
+        return acc.reshape(b, -1) * wss_inv
+
+    def project(x):
+        segs = torch.nn.functional.pad(x.unfold(-1, win, hop) * window, (lpad, n - win - lpad))
+        spec = torch.fft.rfft(segs, n=n)
+        return mag * spec / torch.clamp(spec.abs(), min=1e-8)
+
+    v = u = istft(mag.to(torch.complex64))
+    for _ in range(n_iters):
+        ui = istft(project(v))
+        v = ui + cfg.gl_momentum * (ui - u)
+        u = ui
+    return _trim(istft(project(v)), cfg, t)
 
 
 def main() -> None:
@@ -130,6 +288,11 @@ def main() -> None:
         for line in build.build_log.get(name, "").splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
+    for b, h in ((32, 512), (64, 512), (128, 512)):  # kernel 3's recurrence, training shapes
+        kc, nb, cb, n_k, n_b, smem = gru.bwd_plan(dev, b, h)
+        print(f"  gru_bwd recurrence B={b} H={h}: {n_k} column groups x {n_b} batch groups = "
+              f"{n_k * n_b} blocks of {kc} columns x {nb} rows ({cb} staged at a time), "
+              f"{smem} B dynamic shared memory each")
 
     # ------------------------------------------- kernels vs plain versions
     cfg = AudioConfig()
@@ -146,11 +309,8 @@ def main() -> None:
     plain_ms = cuda_ms(lambda: frontend.frontend_plain(ypad, cfg, 512), 20)
     print(f"frontend 8x512: max_abs_err {err:.3e} (atol 1e-4)  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms")
     check(err <= 1e-4, f"frontend kernel disagrees with its plain version: {err}")
-    # a frame: window, rfft, |.|, mel product, both dB-norms
-    nf, nm = cfg.n_freq, cfg.n_mels
-    fl = 8 * 512 * (cfg.win_length + rfft_flops(cfg.n_fft) + 4 * nf + 2 * nf * nm + 5 * (nf + nm))
-    nb = 4 * (ypad.numel() + nf * nm + cfg.win_length + mel_k.numel() + mag_k.numel())
-    results["frontend"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **bound(fl, nb))
+    results["frontend"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                               **bound(*work("frontend", (ypad, cfg, 512), {})))
 
     def gru_weights(b, t, h, seed):
         g = torch.Generator().manual_seed(seed)
@@ -195,27 +355,29 @@ def main() -> None:
     results["gru"] = dict(
         max_abs_err=max(gru_errs), ms=gru_ms["decoder fwd"][0], plain_ms=gru_ms["decoder fwd"][1],
         library_ms=cudnn_gru(b, t, 640, h, backward=False),
-        **bound(2 * b * t * h * 3 * h, 4 * (b * t * 3 * h + b * t * h + h * 3 * h + 3 * h)))
+        **bound(*work("gru", gru_weights(b, t, h, 0), {})))
     print(f"gru library (cuDNN nn.GRU forward, input 640) {results['gru']['library_ms']:.3f} ms", flush=True)
 
-    # kernel 3: decoder shape forward, encoder shape forward and reverse
+    # kernel 3: decoder shape, encoder shape forward and reverse, the
+    # encoder at twice the batch (rows staged in two chunks), ragged B and
+    # H, T = 1 (where dwh vanishes: h_{t-1} = 0)
     bwd_errs, bwd_times = [], {}
-    for tag, b, t, rev in (("decoder", 32, 128, False), ("encoder fwd", 64, 16, False),
-                           ("encoder rev", 64, 16, True)):
-        h = 512
+    for tag, b, t, h, rev in (("decoder", 32, 128, 512, False), ("encoder fwd", 64, 16, 512, False),
+                              ("encoder rev", 64, 16, 512, True), ("encoder wide", 128, 16, 512, False),
+                              ("ragged", 3, 7, 40, False),
+                              ("ragged rev", 3, 7, 40, True), ("T=1", 5, 1, 40, False)):
         xw, wh, bh = gru_weights(b, t, h, 10 + len(bwd_errs))
         ys = gru.gru_scan(xw, wh, bh, reverse=rev)
         dys = torch.randn(b, t, h, generator=torch.Generator().manual_seed(7)).to(dev)
-        if rev:  # as GRUScan.backward conjugates a reverse scan
-            xw, ys, dys = (a.flip(1).contiguous() for a in (xw, ys, dys))
-        out_k = gru.gru_bwd(xw, wh, bh, ys, dys)
+        out_k = gru.gru_bwd(xw, wh, bh, ys, dys, reverse=rev)
         torch.cuda.synchronize()
-        out_p = gru.gru_bwd_plain(xw, wh, bh, ys, dys)
+        out_p = gru.gru_bwd_plain(xw, wh, bh, ys, dys, reverse=rev)
         e = (out_k[0] - out_p[0]).abs().max().item()
-        r_wh, r_bh = rel_l2(out_k[1], out_p[1]), rel_l2(out_k[2], out_p[2])
+        r_wh = (out_k[1] - out_p[1]).abs().max().item() if t == 1 else rel_l2(out_k[1], out_p[1])
+        r_bh = rel_l2(out_k[2], out_p[2])
         line = (f"gru_bwd {tag} B={b} T={t} H={h}: dxw max_abs_err {e:.3e} (<= 1e-4)  "
-                f"dwh rel-L2 {r_wh:.3e} dbh rel-L2 {r_bh:.3e} (<= 1e-4)")
-        if tag == "decoder" or tag == "encoder fwd":
+                f"dwh {'max_abs_err' if t == 1 else 'rel-L2'} {r_wh:.3e} dbh rel-L2 {r_bh:.3e} (<= 1e-4)")
+        if tag in ("decoder", "encoder fwd"):
             k_ms = cuda_ms(lambda: gru.gru_bwd(xw, wh, bh, ys, dys), 5)
             p_ms = cuda_ms(lambda: gru.gru_bwd_plain(xw, wh, bh, ys, dys), 2)
             lib_ms = cudnn_gru(b, t, 640 if tag == "decoder" else 1024, h, backward=True)
@@ -223,14 +385,13 @@ def main() -> None:
             line += f"  kernel {k_ms:.3f} ms  plain {p_ms:.3f} ms  cuDNN GRU fwd+bwd {lib_ms:.3f} ms"
         print(line, flush=True)
         check(e <= 1e-4, f"gru_bwd kernel ({tag}) dxw disagrees with its plain version: {e}")
-        check(r_wh <= 1e-4 and r_bh <= 1e-4, f"gru_bwd kernel ({tag}) dwh/dbh rel-L2 {r_wh} {r_bh}")
+        check(r_wh <= 1e-4 and r_bh <= 1e-4, f"gru_bwd kernel ({tag}) dwh/dbh {r_wh} {r_bh}")
         bwd_errs.append(e)
     b, t, h = 32, 128, 512
     results["gru_bwd"] = dict(
         max_abs_err=max(bwd_errs), ms=bwd_times["decoder"][0], plain_ms=bwd_times["decoder"][1],
         library_ms=bwd_times["decoder"][2],
-        **bound(3 * 2 * b * t * h * 3 * h,
-                4 * (2 * b * t * 3 * h + 2 * b * t * h + 2 * h * 3 * h + 2 * 3 * h)))
+        **bound(*work("gru_bwd", gru_weights(b, t, h, 0), {})))
 
     # GRUScan (kernels 2 + 3) against cuDNN nn.GRU, decoder training shape
     b, t, i, h = 32, 128, 640, 512
@@ -330,18 +491,9 @@ def main() -> None:
             k_ms = cuda_ms(lambda: griffin_lim.griffin_lim(amp, cfg, n_iters=8), 3)
             p_ms = cuda_ms(lambda: griffin_lim.griffin_lim_plain(amp, cfg, n_iters=8), 3)
             line += f"  kernel {k_ms:.3f} ms  plain {p_ms:.3f} ms"
-            bt, tt = amp.shape[0], amp.shape[1]
-            # a frame: synthesis = irfft, window, overlap-add, wss scale;
-            # analysis = window, rfft, projection onto the magnitudes; the
-            # momentum per sample. One synthesis, then n_iters + 1 rounds of
-            # both (griffin_lim_plain), momentum in n_iters of them.
-            win, hop = cfg.win_length, cfg.hop_length
-            syn = rfft_flops(cfg.n_fft) + 2 * win + hop
-            ana = win + rfft_flops(cfg.n_fft) + 8 * cfg.n_freq
-            fl = bt * tt * (syn + 9 * (ana + syn) + 8 * 3 * hop)
             results["griffin_lim"] = dict(
                 ms=k_ms, plain_ms=p_ms, rel_l2=rel, library_ms=None,
-                **bound(fl, 4 * (amp.numel() + bt * (tt - 1) * hop)))
+                **bound(*work("griffin_lim", (amp, cfg, 8), {})))
         print(line, flush=True)
         check(abs(ck - cp) <= 1e-3, f"griffin-lim kernel ({tag}) consistency {ck} vs plain {cp}")
         check(rel <= 1e-3, f"griffin-lim kernel ({tag}) signal rel-L2 {rel}")
@@ -365,16 +517,18 @@ def main() -> None:
     print(f"conversion path: {len(WAV_SAMPLES)} wavs x {len(TARGETS)} targets, flagship width "
           f"({n_params} params), GL-{acfg.gl_iters}", flush=True)
 
-    ops.reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = cli.main([
-        "convert", "--from-export", str(OUT / "bundle"), "--from-wavs", str(wav_dir),
-        "-result_dir", str(result_dir), "--target", *TARGETS, "--device", "cuda",
-    ])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    conv_launches = ops.launch_counts()
+    conv_calls: dict = {}
+    with capture(("frontend", "gru", "griffin_lim"), conv_calls):
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = cli.main([
+            "convert", "--from-export", str(OUT / "bundle"), "--from-wavs", str(wav_dir),
+            "-result_dir", str(result_dir), "--target", *TARGETS, "--device", "cuda",
+        ])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        conv_launches = ops.launch_counts()
     print(f"conversion wall {wall:.3f} s: {len(WAV_SAMPLES) / wall:.3f} utterances/s, "
           f"{out['n_wavs'] / wall:.3f} wav/s; launches {conv_launches}", flush=True)
     for name in ("frontend", "gru", "griffin_lim"):
@@ -390,6 +544,43 @@ def main() -> None:
             check(sr == 16000 and pcm.dtype == np.int16, f"{tgt}/utt{i}: {sr} Hz {pcm.dtype}")
             check(pcm.shape == ((t - 1) * acfg.hop_length,), f"{tgt}/utt{i}: {pcm.shape} samples")
             check(int(np.abs(pcm.astype(np.int32)).max()) > 100, f"{tgt}/utt{i} is silent")
+
+    # each conversion kernel at the path's own shapes: its calls, each
+    # distinct input timed once and weighted by its count
+    path = {name: path_times(name, conv_calls[name]) for name in ("frontend", "gru", "griffin_lim")}
+    for name, pt in path.items():
+        check(pt["launches"] == conv_launches[name], f"{name}: {pt['launches']} captured calls, "
+              f"{conv_launches[name]} launches")
+        print(f"{name} on the conversion path: {pt['launches']} launches, {len(pt['shapes'])} shapes: "
+              f"kernel {pt['ms']:.3f} ms  plain {pt['plain_ms']:.3f} ms  bound {pt['bound_ms']:.4f} ms", flush=True)
+
+    # Griffin-Lim at GL-100 on the path's own inputs (the decoder's
+    # magnitudes, one call per bucket): consistency within 1e-3 of the
+    # plain version's; the signal rel-L2 printed without a bar (momentum
+    # 0.99 over 100 iterations amplifies rounding). The same recurrence as
+    # a loop of torch.fft calls (cuFFT) is timed beside it as a yardstick.
+    fft_loop_ms, gl100 = 0.0, []
+    for args, kw, count in conv_calls["griffin_lim"].values():
+        amp, acfg_gl = args[0], args[1]
+        n_it = acfg_gl.gl_iters if kw.get("n_iters") is None else kw["n_iters"]
+        out_k = griffin_lim.griffin_lim(amp, acfg_gl, n_iters=n_it)
+        torch.cuda.synchronize()
+        out_p = griffin_lim.griffin_lim_plain(amp, acfg_gl, n_iters=n_it)
+        out_f = gl_fft_loop(amp, acfg_gl, n_it)
+        ck, cp, cf = consistency(out_k, amp), consistency(out_p, amp), consistency(out_f, amp)
+        f_ms = cuda_ms(lambda: gl_fft_loop(amp, acfg_gl, n_it), 1)
+        fft_loop_ms += count * f_ms
+        row = dict(shape=tuple(amp.shape), iters=n_it, consistency_kernel=ck, consistency_plain=cp,
+                   consistency_fft_loop=cf, rel_l2=rel_l2(out_k, out_p), fft_loop_ms=f_ms)
+        gl100.append(row)
+        print(f"griffin-lim GL-{n_it} {tuple(amp.shape)}: consistency kernel {ck:.5f} plain {cp:.5f} "
+              f"(|diff| <= 1e-3) cuFFT loop {cf:.5f}  signal rel-L2 {row['rel_l2']:.3e} (no bar)  "
+              f"cuFFT loop {f_ms:.3f} ms", flush=True)
+        check(torch.isfinite(out_k).all().item() and abs(ck - cp) <= 1e-3,
+              f"griffin-lim GL-{n_it} {tuple(amp.shape)}: consistency {ck} vs plain {cp}")
+    path["griffin_lim"]["fft_loop_ms"] = fft_loop_ms
+    print(f"griffin-lim on the conversion path: kernel {path['griffin_lim']['ms']:.3f} ms, "
+          f"cuFFT loop yardstick {fft_loop_ms:.3f} ms", flush=True)
 
     # reference: the card's conversion of the shortest utterance against the
     # plain path on the CPU (same bundle, GL-4)
@@ -418,24 +609,27 @@ def main() -> None:
     train = train_path(OUT / "train")
     by_path = {"conversion": conv_launches, "training": train.pop("launches"),
                "convert_after_training": train.pop("convert_launches")}
+    path["gru_bwd"] = train.pop("path")
     step_check = card_vs_cpu_steps()
     check("jax" not in sys.modules, "jax was imported")
 
     kernels = []
     for name in ops.KERNELS:
-        r = results[name]
-        path = "training" if name == "gru_bwd" else "conversion"
+        r, pt = results[name], path[name]
+        on = "training" if name == "gru_bwd" else "conversion"
         kernels.append(dict(
             name=name, route="cuda", source=f"{SRC}/{name}.cu", replaces=REPLACES[name],
-            launches=by_path[path][name], launches_path=path,
+            launches=by_path[on][name], launches_path=on,
             launches_by_path={p: c[name] for p, c in by_path.items()}, max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=r["library_ms"]))
+            library_ms=r["library_ms"], path_ms=pt["ms"], path_plain_ms=pt["plain_ms"],
+            path_bound_ms=pt["bound_ms"]))
     (OUT / "result.json").write_text(json.dumps(
         dict(kernels=kernels, launches_by_path=by_path, conversion_wall_s=wall,
              utterances_per_s=len(WAV_SAMPLES) / wall,
              gru_like_for_like=results["gru_vs_cudnn"],
-             gl_rel_l2=results["griffin_lim"]["rel_l2"], reference_unit_agreement=agree,
+             gl_rel_l2=results["griffin_lim"]["rel_l2"], gl100_conversion=gl100, path=path,
+             reference_unit_agreement=agree,
              reference_pcm_rel_l2=pcm_rel, training=train,
              card_vs_cpu_steps=step_check, card=card_line()), indent=2) + "\n")
     print(card_line())
@@ -465,21 +659,24 @@ def train_path(work: Path) -> dict:
     ds, ck = str(work / "ds"), str(work / "ck")
     hps, _ = load_configs(DEFAULT_HPS_PATH)
     common = ["--device", "cuda"]
-    ops.reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    pre = cli.main(["preprocess", "--corpus", str(corpus), "-dataset_path", ds, *common])
-    r1 = cli.main(["train1", "-dataset_path", ds, "-ckpt_dir", ck, "--iters-override", "4", *common])
-    state1 = r1.pop("state")
-    r1b = cli.main(["train1", "-dataset_path", ds, "-ckpt_dir", ck, "--iters-override", "5", *common])
-    r1b.pop("state")
-    r2 = cli.main(["train2", "-dataset_path", ds, "-ckpt_dir", ck, "--iters-override", "1",
-                   "--targets", "V001", "V002", *common])
-    state2 = r2.pop("state")
-    ex = cli.main(["export", "-dataset_path", ds, "-ckpt_dir", ck, "--out", str(work / "bundle"), *common])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = ops.launch_counts()
+    calls: dict = {}
+    with capture(("gru_bwd",), calls):
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pre = cli.main(["preprocess", "--corpus", str(corpus), "-dataset_path", ds, *common])
+        r1 = cli.main(["train1", "-dataset_path", ds, "-ckpt_dir", ck, "--iters-override", "4", *common])
+        state1 = r1.pop("state")
+        r1b = cli.main(["train1", "-dataset_path", ds, "-ckpt_dir", ck, "--iters-override", "5", *common])
+        r1b.pop("state")
+        r2 = cli.main(["train2", "-dataset_path", ds, "-ckpt_dir", ck, "--iters-override", "1",
+                       "--targets", "V001", "V002", *common])
+        state2 = r2.pop("state")
+        ex = cli.main(["export", "-dataset_path", ds, "-ckpt_dir", ck, "--out", str(work / "bundle"),
+                       *common])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
     print(f"training path wall {wall:.2f} s; launches {launches}", flush=True)
     for name in ("frontend", "gru", "gru_bwd"):
         check(launches[name] > 0, f"kernel {name} was not launched on the training path")
@@ -524,7 +721,13 @@ def train_path(work: Path) -> dict:
     print(f"  set-up (corpus to the card, model init): train1 {r1['setup_s']:.2f} s, train2 "
           f"{r2['setup_s']:.2f} s; preprocess {pre['seconds']:.2f} s for {pre['counts']} utterances",
           flush=True)
-    return dict(launches=launches, convert_launches=cv_launches, wall_s=wall, phases=phases,
+    path = path_times("gru_bwd", calls["gru_bwd"])
+    check(path["launches"] == launches["gru_bwd"], f"gru_bwd: {path['launches']} captured calls")
+    print(f"gru_bwd on the training path: {path['launches']} launches, shapes "
+          + ", ".join(f"{x['shape']} x{x['count']}" for x in path["shapes"])
+          + f": kernel {path['ms']:.3f} ms  plain {path['plain_ms']:.3f} ms  bound {path['bound_ms']:.4f} ms",
+          flush=True)
+    return dict(launches=launches, convert_launches=cv_launches, path=path, wall_s=wall, phases=phases,
                 setup_s=[r1["setup_s"], r2["setup_s"]], preprocess_s=pre["seconds"])
 
 

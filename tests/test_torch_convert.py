@@ -120,7 +120,7 @@ def test_convert_wavs_multi_matches_jax(hps, jax_params, stats, jax_conv):
     tgts = ["V001", "V002"]
     ju, jw = jax_conv.convert_wavs_multi(WAVS, [1, 2], tgt_names=tgts)
     pconv = Converter(hps, acfg, *from_flax(jax_params), batch_size=2, bucket_frames=32,
-                      stats=SpeakerStats(*stats))
+                      stats=SpeakerStats(*stats), device="cpu")
     pu, pw = pconv.convert_wavs_multi(WAVS, [1, 2], tgt_names=tgts)
     for i, wav in enumerate(WAVS):
         t = port_audio.n_frames_for(len(wav), acfg)
@@ -193,6 +193,8 @@ def test_cli_refuses_cuda_without_a_card(tmp_path):
     assert "no CUDA device" in str(e.value)
     with pytest.raises(RuntimeError):
         Converter(*_tiny_converter_args(), device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):  # the default device is the card
+        Converter(*_tiny_converter_args())
 
 
 def _tiny_converter_args():

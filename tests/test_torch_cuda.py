@@ -76,10 +76,17 @@ def test_gru_kernel_matches_plain(cuda, b, t, h, reverse, masked):
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
 
 
+# every other n_fft the kernel takes: its FFTs are built per log2 n_fft,
+# n_fft = P x L with P = L (even) or P = 2L (odd: 32, 128, 512)
+GL_CONFIGS = {**CONFIGS, **{f"n{n}": dict(n_fft=n, hop_length=n // 4, win_length=n)
+                            for n in (16, 32, 64, 128, 512)}}
+
+
 @pytest.mark.parametrize("b,t,cfg_name", [(4, 512, "default"), (1, 2500, "default"),
-                                          (2, 5, "default"), (3, 100, "hop50")])
+                                          (2, 5, "default"), (3, 100, "hop50"),
+                                          *((3, 100, f"n{n}") for n in (16, 32, 64, 128, 512))])
 def test_griffin_lim_kernel_matches_plain(cuda, b, t, cfg_name):
-    cfg = AudioConfig(**CONFIGS[cfg_name])
+    cfg = AudioConfig(**GL_CONFIGS[cfg_name])
     gen = torch.Generator().manual_seed(t)
     mag = (torch.rand(b, t, cfg.n_freq, generator=gen) ** 3).to(cuda)
     before = griffin_lim.launches
@@ -99,6 +106,35 @@ def test_griffin_lim_kernel_matches_plain(cuda, b, t, cfg_name):
         assert row < 1e-3, row
 
 
+def _consistency(out, amp, cfg):
+    re, im = audio.stft(out, cfg)
+    m2 = torch.sqrt(re * re + im * im)[:, 4:-4]
+    return (torch.linalg.norm(m2 - amp[:, 4:-4]) / torch.linalg.norm(amp[:, 4:-4])).item()
+
+
+# The conversion path's Griffin-Lim calls (tools/workload.py, 8 wavs x 2
+# targets): rows x bucket frames
+CONVERSION_GL = [(6, 512), (2, 384), (2, 320), (4, 256), (2, 128)]
+
+
+@pytest.mark.parametrize("b,t", CONVERSION_GL, ids=[f"{b}x{t}" for b, t in CONVERSION_GL])
+def test_griffin_lim_kernel_gl100_conversion_shapes(cuda, b, t):
+    """GL-100 at the conversion path's shapes: magnitude consistency within
+    1e-3 of the plain version's. The signals' rel-L2 is printed, not
+    barred: momentum 0.99 over 100 iterations amplifies rounding."""
+    cfg = AudioConfig()
+    n = t * cfg.hop_length - 1
+    y = torch.from_numpy(np.stack([_noisy_tones(n, s) for s in range(b)])).to(cuda)
+    _, mag = audio.wav_to_features(y, cfg)
+    amp = (audio.db_norm_to_amp(mag, cfg) ** cfg.gl_power).contiguous()
+    out = griffin_lim.griffin_lim(amp, cfg, n_iters=100)
+    torch.cuda.synchronize()
+    ref = griffin_lim.griffin_lim_plain(amp, cfg, n_iters=100)
+    ck, cp = _consistency(out, amp, cfg), _consistency(ref, amp, cfg)
+    print(f"GL-100 {b}x{t}: consistency kernel {ck:.5f} plain {cp:.5f}, signal rel-L2 {_rel(out, ref):.3e}")
+    assert torch.isfinite(out).all() and abs(ck - cp) <= 1e-3, (ck, cp)
+
+
 def _gru_inputs(b, t, h, seed, device):
     gen = torch.Generator().manual_seed(seed)
     xw = torch.randn(b, t, 3 * h, generator=gen)
@@ -115,23 +151,40 @@ def _rel(a, b):
     (32, 128, 512, False),  # decoder, training
     (64, 16, 512, False),   # encoder forward direction, training (pairs on)
     (64, 16, 512, True),    # encoder backward direction
+    (128, 16, 512, False),  # encoder at --train-batch-size 64: rows staged in two chunks
+    (128, 16, 512, True),
+    (512, 4, 512, False),   # a large batch: seven chunks a step
     (3, 7, 40, False),      # ragged: B, H not multiples of the tiles
+    (3, 7, 41, False),      # 3H not a multiple of 4: rows staged as floats
+    (3, 7, 40, True),
+    (5, 1, 40, False),      # T = 1: no step crosses the grid barrier
+    (5, 1, 40, True),
 ])
 def test_gru_bwd_kernel_matches_plain(cuda, b, t, h, reverse):
-    """Kernel 3 against gru_bwd_plain on the same card: dxw max abs <= 1e-4,
-    dwh and dbh rel-L2 <= 1e-4 (f32 sums over B*T rows in another order)."""
+    """Kernel 3 (one cooperative launch for the whole recurrence) against
+    gru_bwd_plain on the same card: dxw max abs <= 1e-4, dwh and dbh
+    rel-L2 <= 1e-4 (f32 sums over B*T rows in another order). A reverse
+    scan's backward pass walks time itself; it must also equal the
+    forward-time pass on flipped tensors (the conjugation it replaces)."""
     xw, wh, bh = _gru_inputs(b, t, h, t + h, cuda)
     ys = gru.gru_scan(xw, wh, bh, reverse=reverse)
     dys = torch.randn(b, t, h, generator=torch.Generator().manual_seed(1)).to(cuda)
-    if reverse:  # as GRUScan.backward conjugates a reverse scan
-        xw, ys, dys = (a.flip(1).contiguous() for a in (xw, ys, dys))
     before = gru.bwd_launches
-    dxw, dwh, dbh = gru.gru_bwd(xw, wh, bh, ys, dys)
+    dxw, dwh, dbh = gru.gru_bwd(xw, wh, bh, ys, dys, reverse=reverse)
     torch.cuda.synchronize()
     assert gru.bwd_launches == before + 1
-    rxw, rwh, rbh = gru.gru_bwd_plain(xw, wh, bh, ys, dys)
+    rxw, rwh, rbh = gru.gru_bwd_plain(xw, wh, bh, ys, dys, reverse=reverse)
     assert (dxw - rxw).abs().max().item() <= 1e-4
-    assert _rel(dwh, rwh) <= 1e-4 and _rel(dbh, rbh) <= 1e-4
+    if t == 1:  # h_{t-1} = 0 at the only step: dwh vanishes
+        assert not dwh.any() and not rwh.any()
+    else:
+        assert _rel(dwh, rwh) <= 1e-4
+    assert _rel(dbh, rbh) <= 1e-4
+    if reverse:
+        fxw, fwh, fbh = gru.gru_bwd(*(a.flip(1).contiguous() if a.dim() == 3 else a
+                                      for a in (xw, wh, bh, ys, dys)))
+        assert (fxw.flip(1) - dxw).abs().max().item() <= 1e-4
+        assert _rel(fbh, dbh) <= 1e-4 and (t == 1 or _rel(fwh, dwh) <= 1e-4)
 
 
 def test_gru_scan_grads_match_cudnn_gru(cuda):
@@ -169,6 +222,14 @@ def test_wrappers_reject_bad_cuda_inputs(cuda):
     cfg = AudioConfig()
     with pytest.raises(ValueError):  # not contiguous
         griffin_lim.griffin_lim(torch.rand(1, cfg.n_freq, 20, device=cuda).transpose(1, 2), cfg, 1)
+    with pytest.raises(ValueError):  # n_fft not a power of two: the kernel's FFTs need one
+        odd = AudioConfig(n_fft=1000)
+        griffin_lim.griffin_lim(torch.rand(1, 20, odd.n_freq, device=cuda), odd, 1)
+    with pytest.raises(ValueError):  # wh rows of a block beyond its shared memory
+        h = 1600
+        gru.gru_bwd(torch.rand(1, 1, 3 * h, device=cuda), torch.rand(h, 3 * h, device=cuda),
+                    torch.rand(3 * h, device=cuda), torch.rand(1, 1, h, device=cuda),
+                    torch.rand(1, 1, h, device=cuda))
     with pytest.raises(ValueError):  # ys of the wrong shape
         gru.gru_bwd(*(torch.rand(2, 3, 12, device=cuda), torch.rand(4, 12, device=cuda),
                       torch.rand(12, device=cuda), torch.rand(2, 3, 5, device=cuda),

@@ -5,6 +5,7 @@ tail (de-emphasis); the CUDA kernel itself: tests/test_torch_cuda.py."""
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from zerospeech_tts_tpu.config import AudioConfig as JaxAudioConfig
@@ -79,3 +80,36 @@ def test_de_emphasis_inverts_preemphasis_and_matches_jax():
     np.testing.assert_allclose(y.numpy(), ref, atol=1e-5, rtol=0)
     back = port_audio.preemphasis(y, 0.97)
     np.testing.assert_allclose(back.numpy(), x, atol=1e-5, rtol=0)
+
+
+# the card tests' configs (tests/test_torch_cuda.py CONFIGS)
+FFT_CONFIGS = {"default": {}, "small": dict(n_fft=256, hop_length=64, win_length=256, n_mels=20),
+               "hop50": dict(n_fft=256, hop_length=50, win_length=250, n_mels=20)}
+
+
+@pytest.mark.parametrize("cfg_kw", FFT_CONFIGS.values(), ids=FFT_CONFIGS.keys())
+def test_fft_formulation_matches_dft_bases(cfg_kw):
+    """The offsets and scalings csrc/griffin_lim.cu mirrors: a windowed
+    frame placed at lpad of an n_fft buffer through rfft gives frames @ ca
+    and frames @ sa; irfft sliced to [lpad, lpad + win) and windowed gives
+    sre @ cs + sim @ ss (irfft ignores the imaginary parts of DC and
+    Nyquist, as the basis's zero ss rows do). f32 on both sides: rel-L2
+    within 1e-5."""
+    cfg = AudioConfig(**cfg_kw)
+    ca, sa, cs, ss = (torch.from_numpy(a) for a in port_audio._fused_bases(cfg))
+    lpad, win = (cfg.n_fft - cfg.win_length) // 2, cfg.win_length
+    window = torch.from_numpy(port_audio._window(cfg)[lpad : lpad + win])
+    rng = np.random.default_rng(0)
+    frames = torch.from_numpy(rng.standard_normal((64, win)).astype(np.float32))
+    buf = torch.zeros(64, cfg.n_fft)
+    buf[:, lpad : lpad + win] = frames * window
+    spec = torch.fft.rfft(buf, n=cfg.n_fft)
+
+    def rel(a, b):
+        return (torch.linalg.norm(a - b) / torch.linalg.norm(b)).item()
+
+    assert rel(spec.real, frames @ ca) < 1e-5
+    assert rel(spec.imag, frames @ sa) < 1e-5
+    sre, sim = (torch.from_numpy(rng.standard_normal((64, cfg.n_freq)).astype(np.float32)) for _ in range(2))
+    back = torch.fft.irfft(torch.complex(sre, sim), n=cfg.n_fft)[:, lpad : lpad + win] * window
+    assert rel(back, sre @ cs + sim @ ss) < 1e-5

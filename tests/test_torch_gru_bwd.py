@@ -140,3 +140,24 @@ def test_dropout_keep_rate_scale_and_fed_draws():
     u = np.array([[0.1, 0.75], [0.69, 0.71]], np.float32)  # fed uniforms: keep where u < 0.7
     z = dropout(torch.ones(2, 2), 0.3, FedNoise([u]))
     assert torch.equal(z != 0, torch.from_numpy(u < 0.7))
+
+
+def test_gru_bwd_plain_reverse_matches_flipped_call_and_jax():
+    """Kernel 3's ``reverse`` flag: the backward pass of a back-to-front
+    scan, walking time forwards, equals the forward-time pass on the
+    time-flipped tensors with dxw flipped back, and both match JAX's
+    _gru_bwd_call (interpret mode) on the flipped inputs. f32 on all three
+    sides, sums in other orders: within ATOL."""
+    xw, wh, bh, dys = _inputs(seed=4)
+    ys = np.array(pallas_gru_scan(jnp.asarray(xw), jnp.asarray(wh), jnp.asarray(bh), reverse=True,
+                                  interpret=True))
+    flip = lambda a: np.ascontiguousarray(a[:, ::-1])  # noqa: E731
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+    rev = gru.gru_bwd_plain(t(xw), t(wh), t(bh), t(ys), t(dys), reverse=True)
+    conj = gru.gru_bwd_plain(t(flip(xw)), t(wh), t(bh), t(flip(ys)), t(flip(dys)))
+    ref = _gru_bwd_call(*(jnp.asarray(a) for a in (flip(xw), wh, bh, flip(ys), flip(dys))), interpret=True)
+    ref = (flip(np.asarray(ref[0])), np.asarray(ref[1]), np.asarray(ref[2]))
+    conj = (conj[0].flip(1), conj[1], conj[2])
+    for name, r, c, j in zip(("dxw", "dwh", "dbh"), rev, conj, ref):
+        np.testing.assert_allclose(r.numpy(), c.numpy(), atol=ATOL, rtol=0, err_msg=name)
+        np.testing.assert_allclose(r.numpy(), j, atol=ATOL, rtol=0, err_msg=name)

@@ -64,7 +64,7 @@ def _port_state(hps, jst) -> TrainState:
         a = getattr(jst, f"opt_{n}")[1][0]  # chain(clip, adam): ScaleByAdamState
         adam[n] = (int(a.count), np_(a.mu), np_(a.nu))
     return train_state_from_flax(hps, {n: np_(getattr(jst, n)) for n in MODS}, adam,
-                                 step=int(jst.step), train_start=int(jst.train_start))
+                                 step=int(jst.step), train_start=int(jst.train_start), device="cpu")
 
 
 def _gumbel(k, shape):
@@ -176,7 +176,7 @@ def test_alpha_ramps_from_train_start(hps, jsolver):
         assert s.alpha(step, start) == pytest.approx(ref, rel=1e-6, abs=1e-9)
     assert s.alpha(777, 777) == 0.0 and s.alpha(777 + hps.lat_sched_iters, 777) == hps.alpha_enc
     st = train_state_from_flax(hps, {n: jax.tree.map(np.asarray, getattr(
-        jsolver.init_state(jax.random.PRNGKey(0)), n)) for n in MODS}, step=12)
+        jsolver.init_state(jax.random.PRNGKey(0)), n)) for n in MODS}, step=12, device="cpu")
     Solver.stamp_train_start(st, "pretrain_AE")
     assert st.train_start == -1
     Solver.stamp_train_start(st, "train")
@@ -204,3 +204,12 @@ def test_pair_consistency_matches_jax(hps, jsolver):
         got = float(s.pair_consistency(torch.from_numpy(z), torch.from_numpy(z2), torch.from_numpy(dt)))
         assert got == pytest.approx(ref, rel=1e-5, abs=1e-6)
     assert got >= PAIR_SEP_MARGIN - 1e-6
+
+
+def test_train_state_from_flax_defaults_to_the_card(hps):
+    """The port's entry points run on the card unless the caller asks for
+    the CPU: with no device argument and no CUDA device, it refuses."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_state_from_flax(hps, {})

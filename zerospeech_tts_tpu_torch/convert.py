@@ -73,8 +73,9 @@ def _round_rows(k: int, cap: int) -> int:
 class Converter:
     """Encoder + decoder on ``device``, converting PCM batches per padded
     length bucket. ``enc_state``/``dec_state`` are the port's state dicts
-    (``params.from_flax``). ``device="cuda"`` runs the hand-written kernels
-    and never falls back to the CPU."""
+    (``params.from_flax``). On ``device="cuda"`` (the default) it runs the
+    hand-written kernels and never falls back to the CPU; ``device="cpu"``
+    runs their plain versions."""
 
     def __init__(
         self,
@@ -86,7 +87,7 @@ class Converter:
         batch_size: int = 8,
         bucket_frames: int = 64,
         stats=None,  # SpeakerStats when hps.speaker_norm (z-norm in/out)
-        device: str | torch.device = "cpu",
+        device: str | torch.device = "cuda",
     ):
         assert bucket_frames % hps.downsample == 0
         self.device = torch.device(device)

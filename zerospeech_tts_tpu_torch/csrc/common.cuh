@@ -1,7 +1,7 @@
 // Shared pieces of the port's hand-written Hopper kernels (frontend.cu,
-// gru.cu, griffin_lim.cu). Each .cu builds into its own shared library with
-// a plain C interface (see ops/build.py); every library exports
-// zs_error_string so the Python binding can render a cudaError_t.
+// gru.cu, gru_bwd.cu, griffin_lim.cu). Each .cu builds into its own shared
+// library with a plain C interface (see ops/build.py); every library
+// exports zs_error_string so the Python binding can render a cudaError_t.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -15,7 +15,7 @@
 
 namespace zs {
 
-// Frames per block of the windowed-DFT analysis (frontend and Griffin-Lim).
+// Frames per block of the frontend's windowed-DFT analysis.
 // Consecutive frames overlap (hop < win), so a block's frames are one
 // contiguous span of (kAnalysisFrames - 1) * hop + win samples.
 constexpr int kAnalysisFrames = 32;
@@ -33,6 +33,34 @@ inline cudaError_t allow_smem(Kernel* kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
+}
+
+// Barrier across n_blocks blocks that are all co-resident (the blocks of a
+// cooperative launch, which cudaLaunchCooperativeKernel guarantees or
+// refuses, or one group of them with a bar of its own). bar[0] counts
+// arrivals and returns to 0 at each release; bar[1] is the generation that
+// waiting blocks spin on. Both start at 0 (the host zeroes them before the
+// launch). Every thread of every block must call it. The
+// bar.sync, then thread 0's fence before it arrives and after it leaves,
+// order each block's writes before every other block's reads after the
+// barrier; those reads go through L2 (__ldcg), not a stale L1 line.
+__device__ inline void grid_barrier(unsigned* bar, unsigned n_blocks) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    volatile unsigned* gen = bar + 1;
+    const unsigned g = *gen;
+    __threadfence();
+    if (atomicAdd(bar, 1u) == n_blocks - 1) {
+      atomicExch(bar, 0u);
+      __threadfence();
+      atomicAdd(bar + 1, 1u);
+    } else {
+      while (*gen == g) {
+      }
+    }
+    __threadfence();
+  }
+  __syncthreads();
 }
 
 // span[s] = sig[s0 + s] for s in [0, n), zero at and past sig[len].

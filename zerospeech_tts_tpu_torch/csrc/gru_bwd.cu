@@ -1,9 +1,11 @@
-// Kernel 3: backward pass of the unmasked GRU scan (forward time).
+// Kernel 3: backward pass of the unmasked GRU scan, either time direction.
 //
 // Replaces zerospeech_tts_tpu/ops/pallas_gru.py::_gru_bwd_call. From the
 // forward inputs xw [B, T, 3H], wh [H, 3H], bh [3H], the outputs ys
 // [B, T, H] and their gradient dys it computes dxw [B, T, 3H], dwh [H, 3H]
-// and dbh [3H]. With h_{t-1} = ys[:, t-1] (h_{-1} = 0), in reverse time:
+// and dbh [3H]. The forward scan ran in time order (rev = 0: h_{t-1} =
+// ys[:, t-1]) or back to front (rev = 1: h_{t-1} means ys[:, t+1]), with
+// the first step's state 0. Walking the scan's steps backwards:
 //     hw = h_{t-1} wh + bh;  r, z = sigmoid(x_{r,z} + hw_{r,z});
 //     n  = tanh(x_n + r hw_n);  dh += dys_t
 //     dn = dh (1-z)(1-n^2);  dz = dh (h_{t-1} - n) z (1-z);  dr = dn hw_n r (1-r)
@@ -12,166 +14,318 @@
 //
 // What bounds it on an H100: three products of 2 B T H 3H FMAs each
 // (hw, the dh recurrence, dwh), f32 CUDA-core FLOPs (6.4 GFLOP each at
-// B=32, T=128, H=512: ~0.29 ms at 67 TFLOP/s), but only the dh recurrence
-// is serial: T dependent steps of a [B, 3H] x [3H, H] product, whose
-// launch latency and L2 reads of wh (3 MB) set the time at these shapes.
+// B=32, T=128, H=512: ~0.29 ms at 67 TFLOP/s). Only the dh recurrence is
+// serial: T dependent steps of a [B, 3H] x [3H, H] product, each far below
+// a microsecond of arithmetic, so step latency sets the time.
 //
-// Design: the TPU kernel runs all three products inside one sequential
-// grid with dwh accumulated in VMEM. Here the two products that do not
-// depend on the carry run as parallel passes, and only the recurrence is
-// serial:
-//   1. hw for all B*T rows at once (a tiled f32 product, 64 x 64 tiles,
-//      4 x 4 outputs a thread), into a scratch buffer;
-//   2. one launch per step (T launches from one C call): a block owns 8
-//      batch rows and 8 columns k of dh. It forms its rows' dhw over all 3H
-//      from hw, xw, h_{t-1} and dh (elementwise; every column block repeats
-//      this cheap part for its rows), keeps them in shared memory, writes
-//      the dxw and dhw columns of its own k, and then each warp takes one
-//      column k: its 32 lanes stride over the 3H terms of dhw . wh[k, :]
-//      (coalesced rows of wh) and reduce with shuffles. The dh carry
-//      ping-pongs between two [B, H] buffers;
+// Design: the products that do not depend on the carry run as parallel
+// passes, and the recurrence runs in ONE persistent launch:
+//   1. hw for all B*T rows at once (a tiled f32 product, 128 x 128 tiles,
+//      8 x 8 outputs a thread), into a scratch buffer;
+//   2. the recurrence, a cooperative launch (every block co-resident, at
+//      most one per SM). Blocks form a grid of NB batch groups x NK column
+//      groups: block (g, q) owns nb = ceil(B / NB) batch rows and kc =
+//      ceil(H / NK) columns K of dh. Its rows wh[K, :] (kc x 3H f32) are
+//      loaded into shared memory once and stay there; beside them it
+//      stages its batch rows of dhw_t cb at a time (make_plan: the fewest
+//      chunks, then the fewest column groups; NK = 16, kc = 32, NB = 8,
+//      nb = cb = 4: 128 blocks at B=32 H=512). Only kc x 3H bounds H; any
+//      B has a spread, in more chunks. The block's dh carry stays in [B, H]
+//      scratch that no other block touches. The recurrence of a batch row
+//      needs only that row's dhw, so only the NK blocks of a batch group
+//      wait for each other. Step t:
+//        a. elementwise on its rows and columns: dh += dys_t, recompute r,
+//           z, n from xw_t, hw_t and h_{t-1}, write dxw_t and dhw_t for
+//           the columns {K, H+K, 2H+K} (dhw_t into the [B, T, 3H] scratch
+//           that the dwh pass reads; row t is written once, so it is also
+//           the exchange between blocks);
+//        b. barrier of the batch group (common.cuh grid_barrier on the
+//           group's own counter);
+//        c. per chunk, stage its rows of dhw_t from L2 into shared memory,
+//           then dh[rows, K] = dh z + dhw_t wh[K, :]^T: a warp takes a
+//           2-row x 4-column tile, its lanes stride over the 3H terms and
+//           reduce with shuffles; where tiles are fewer than warps, the 3H
+//           terms are split between warps and their sums added in a fixed
+//           order.
+//      A step costs a group barrier and an L2 read of nb rows (24 KB at
+//      B=32), not a launch and a re-read of wh (3 MB);
 //   3. dwh = h_prev^T dhw over all B*T rows (the same tiled product, A read
-//      transposed) and dbh as column sums (8 row slices a column, reduced
-//      in shared memory): deterministic, no atomics.
-// A persistent single-launch recurrence and tensor-core products are later
-// work.
+//      transposed, split over K into enough slices to fill the card, their
+//      partial products summed in a fixed order) and dbh as column sums (8
+//      row slices a column, reduced in shared memory): deterministic, no
+//      atomics.
+// Tensor-core products and the passes' fusion into the recurrence are
+// later work.
 #include "common.cuh"
 
 namespace {
 
-constexpr int TM = 64, TN = 64, TK = 16;  // product tile
-constexpr int GEMM_THREADS = 256;         // 16 x 16 threads, 4 x 4 outputs each
-constexpr int BB = 8;                     // batch rows per step block
-constexpr int KC = 8;                     // dh columns per step block (one warp each)
-constexpr int STEP_THREADS = 32 * KC;
+constexpr int TM = 128, TN = 128, TK = 8;  // product tile
+constexpr int GEMM_THREADS = 256;          // 16 x 16 threads, 8 x 8 outputs each
+constexpr int REC_THREADS = 512;          // recurrence block: 16 warps
+constexpr int NWARPS = REC_THREADS / 32;
+constexpr int RB = 2;                     // batch rows of a warp's tile
+constexpr int KG = 4;                     // dh columns of a warp's tile
 
 __device__ inline float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
 
-// h_{t-1} of flat row m = b * T + t, column k (0 at t = 0).
-__device__ inline float hprev_at(const float* __restrict__ ys, int m, int k, int T, int H) {
-  return (m % T) ? ys[static_cast<long>(m - 1) * H + k] : 0.f;
+// h_{t-1} of flat row m = b * T + t, column k: ys one step earlier in the
+// scan's own order, 0 at its first step.
+__device__ inline float hprev_at(const float* __restrict__ ys, int m, int k, int T, int H,
+                                 int rev) {
+  const int t = m % T;
+  if (rev) return t < T - 1 ? ys[static_cast<long>(m + 1) * H + k] : 0.f;
+  return t ? ys[static_cast<long>(m - 1) * H + k] : 0.f;
 }
 
-// C[M, N] = A[M, K] Bm[K, N] (+ bias[N]). TRANS == false: A(m, k) =
-// h_prev(row m, column k) (the hw pass, M = B*T, K = H). TRANS == true:
-// A(m, k) = h_prev(row k, column m) (the dwh pass, M = H, K = B*T).
+// C[M, N] = A[M, K] Bm[K, N] (+ bias[N]), or with split-K (gridDim.z = S
+// > 1) S partial products over K slices of kslice, into C + z M N.
+// TRANS == false: A(m, k) = h_prev(row m, column k) (the hw pass, M = B*T,
+// K = H). TRANS == true: A(m, k) = h_prev(row k, column m) (the dwh pass,
+// M = H, K = B*T). 128 x 128 tiles, 8 deep; a thread computes 8 x 8
+// outputs from float4 reads of the tiles, and loads the next tiles into
+// registers while it computes on the current ones.
 template <bool TRANS>
-__global__ void hprev_gemm_kernel(const float* __restrict__ ys, const float* __restrict__ Bm,
-                                  const float* __restrict__ bias, float* __restrict__ C, int M,
-                                  int N, int K, int T, int H) {
-  __shared__ float As[TK][TM + 4];
-  __shared__ float Bs[TK][TN];
+__global__ void __launch_bounds__(GEMM_THREADS)
+hprev_gemm_kernel(const float* __restrict__ ys, const float* __restrict__ Bm,
+                  const float* __restrict__ bias, float* __restrict__ C, int M, int N, int K,
+                  int kslice, int T, int H, int rev) {
+  __shared__ __align__(16) float As[TK][TM + 4];
+  __shared__ __align__(16) float Bs[TK][TN];
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int m0 = blockIdx.y * TM, n0 = blockIdx.x * TN;
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < K; k0 += TK) {
-    for (int i = tid; i < TM * TK; i += GEMM_THREADS) {
+  const int kb = blockIdx.z * kslice, ke = min(K, kb + kslice);
+  float a_next[4], b_next[4];
+  auto fetch = [&](int k0) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int i = tid + u * GEMM_THREADS;
       // consecutive threads read consecutive addresses of ys
       const int mm = TRANS ? i % TM : i / TK, kk = TRANS ? i / TM : i % TK;
       const int m = m0 + mm, k = k0 + kk;
-      float v = 0.f;
-      if (m < M && k < K) v = TRANS ? hprev_at(ys, k, m, T, H) : hprev_at(ys, m, k, T, H);
-      As[kk][mm] = v;
+      a_next[u] = m < M && k < ke ? (TRANS ? hprev_at(ys, k, m, T, H, rev) : hprev_at(ys, m, k, T, H, rev))
+                                  : 0.f;
+      const int kb_ = i / TN, nn = i % TN, kB = k0 + kb_, n = n0 + nn;
+      b_next[u] = kB < ke && n < N ? Bm[static_cast<long>(kB) * N + n] : 0.f;
     }
-    for (int i = tid; i < TK * TN; i += GEMM_THREADS) {
-      const int kk = i / TN, nn = i % TN, k = k0 + kk, n = n0 + nn;
-      Bs[kk][nn] = (k < K && n < N) ? Bm[static_cast<long>(k) * N + n] : 0.f;
+  };
+  auto store = [&]() {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int i = tid + u * GEMM_THREADS;
+      const int mm = TRANS ? i % TM : i / TK, kk = TRANS ? i / TM : i % TK;
+      As[kk][mm] = a_next[u];
+      Bs[i / TN][i % TN] = b_next[u];
     }
+  };
+  float acc[8][8] = {};
+  fetch(kb);
+  for (int k0 = kb; k0 < ke; k0 += TK) {
+    store();
     __syncthreads();
+    if (k0 + TK < ke) fetch(k0 + TK);
 #pragma unroll
     for (int kk = 0; kk < TK; ++kk) {
-      float a[4], b[4];
+      const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
+      const float4 a1 = *reinterpret_cast<const float4*>(&As[kk][64 + ty * 4]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
+      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[kk][64 + tx * 4]);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
     }
     __syncthreads();
   }
+  float* out = C + static_cast<long>(blockIdx.z) * M * N;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty + 16 * i;
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
     if (m >= M) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n < N) C[static_cast<long>(m) * N + n] = acc[i][j] + (bias ? bias[n] : 0.f);
+    for (int j = 0; j < 8; ++j) {
+      const int n = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
+      if (n < N) out[static_cast<long>(m) * N + n] = acc[i][j] + (bias ? bias[n] : 0.f);
     }
   }
 }
 
-// One reverse-time step t: dh_out = dh z + dhw_t wh^T for this block's 8
-// rows and 8 columns; dxw_t and dhw_t for its columns.
-__global__ void gru_bwd_step_kernel(const float* __restrict__ xw, const float* __restrict__ wh,
-                                    const float* __restrict__ hw, const float* __restrict__ ys,
-                                    const float* __restrict__ dys, const float* __restrict__ dh_in,
-                                    float* __restrict__ dh_out, float* __restrict__ dxw,
-                                    float* __restrict__ dhw, int B, int T, int H, int t) {
-  extern __shared__ float smem[];
-  float* dhw_s = smem;                // [BB][3H]
-  float* dhz_s = smem + BB * 3 * H;   // [BB][KC]: dh * z of this block's columns
-  const int tid = threadIdx.x, H3 = 3 * H;
-  const int k0 = blockIdx.x * KC, b0 = blockIdx.y * BB;
+// out[i] = sum over the S partials part[s, i], in order s = 0 .. S-1.
+__global__ void sum_partials_kernel(const float* __restrict__ part, float* __restrict__ out, int S,
+                                    long n) {
+  for (long i = blockIdx.x * static_cast<long>(blockDim.x) + threadIdx.x; i < n;
+       i += static_cast<long>(gridDim.x) * blockDim.x) {
+    float v = 0.f;
+    for (int s = 0; s < S; ++s) v += part[s * n + i];
+    out[i] = v;
+  }
+}
 
-  for (int idx = tid; idx < BB * H; idx += STEP_THREADS) {
-    const int bb = idx / H, j = idx % H, b = b0 + bb;
-    float* row = dhw_s + bb * H3;
-    if (b >= B) {
-      row[j] = row[H + j] = row[2 * H + j] = 0.f;
-      continue;
-    }
-    const long base = (static_cast<long>(b) * T + t) * H3;
-    const float* x = xw + base;
-    const float* g = hw + base;
-    const float hp = t > 0 ? ys[(static_cast<long>(b) * T + t - 1) * H + j] : 0.f;
-    const float dh = dh_in[static_cast<long>(b) * H + j] + dys[(static_cast<long>(b) * T + t) * H + j];
-    const float hn = g[2 * H + j];
-    const float r = sigmoid(x[j] + g[j]);
-    const float z = sigmoid(x[H + j] + g[H + j]);
-    const float n = tanhf(x[2 * H + j] + r * hn);
-    const float dn = dh * (1.f - z) * (1.f - n * n);
-    const float dz = dh * (hp - n) * z * (1.f - z);
-    const float dr = dn * hn * r * (1.f - r);
-    row[j] = dr;
-    row[H + j] = dz;
-    row[2 * H + j] = dn * r;
-    if (j >= k0 && j < k0 + KC) {
-      dxw[base + j] = dr;
-      dxw[base + H + j] = dz;
-      dxw[base + 2 * H + j] = dn;
-      dhw[base + j] = dr;
-      dhw[base + H + j] = dz;
-      dhw[base + 2 * H + j] = dn * r;
-      dhz_s[bb * KC + (j - k0)] = dh * z;
+// How the recurrence is spread: kc columns and nb batch rows a block, NK x
+// NB blocks (blockIdx.x = group * NK + column group); the block's rows of
+// dhw_t are staged cb at a time.
+struct Plan {
+  int kc, nb, cb, NK, NB;
+};
+
+int tiles(int rows, int kc) { return ((rows + RB - 1) / RB) * ((kc + KG - 1) / KG); }
+
+size_t rec_smem_bytes(const Plan& p, int H) {
+  const int nt = tiles(p.cb, p.kc), slots = nt > NWARPS ? nt : NWARPS;
+  return (static_cast<size_t>(p.kc + p.cb) * 3 * H  // wh rows, a chunk of staged dhw rows
+          + static_cast<size_t>(slots) * RB * KG)    // warp partial sums
+         * sizeof(float);
+}
+
+// The spread on a card of n_sm SMs with optin bytes of shared memory a
+// block. For each column-group count NK (NK <= n_sm), as many batch groups
+// as the SMs left over allow (NK x NB <= n_sm), and the largest chunk of
+// staged rows that fits beside the block's rows of wh; of these, the fewest
+// chunks, then the fewest column groups. Only kc x 3H must fit (with one
+// staged row): any B has a spread. False when no NK leaves that room.
+bool make_plan(Plan& best, int B, int H, int n_sm, size_t optin) {
+  const size_t row = 3 * static_cast<size_t>(H) * sizeof(float);
+  int best_chunks = 0;
+  for (int nk = 1; nk <= H && nk <= n_sm; ++nk) {
+    Plan p;
+    p.kc = (H + nk - 1) / nk;
+    p.NK = (H + p.kc - 1) / p.kc;
+    const int nbg = n_sm / p.NK < B ? n_sm / p.NK : B;
+    p.nb = (B + nbg - 1) / nbg;
+    p.NB = (B + p.nb - 1) / p.nb;
+    if (p.kc * row >= optin) continue;
+    p.cb = static_cast<int>((optin - p.kc * row) / row);
+    if (p.cb > p.nb) p.cb = p.nb;
+    while (p.cb > 0 && rec_smem_bytes(p, H) > optin) --p.cb;
+    if (p.cb == 0) continue;
+    const int chunks = (p.nb + p.cb - 1) / p.cb;
+    p.cb = (p.nb + chunks - 1) / chunks;  // even chunks, none larger than what fits
+    if (!best_chunks || chunks < best_chunks) {
+      best = p;
+      best_chunks = chunks;
     }
   }
+  return best_chunks > 0;
+}
+
+// st[bb, :] = dhw[b0 + bb, t, :] for bb < n, in units V (float4 when 3H
+// is a multiple of 4) of which a row holds w. The rows were written by
+// other blocks, so they are read through L2.
+template <typename V>
+__device__ inline void stage_rows(float* st, const float* dhw, int b0, int n, int t, int T, int w) {
+  constexpr int per = sizeof(V) / sizeof(float);
+  V* dst = reinterpret_cast<V*>(st);
+  for (int i = threadIdx.x; i < n * w; i += REC_THREADS) {
+    const int bb = i / w;
+    const V* row = reinterpret_cast<const V*>(dhw + (static_cast<long>(b0 + bb) * T + t) * w * per);
+    dst[i] = __ldcg(row + (i - bb * w));
+  }
+}
+
+// The whole dh recurrence. The carry dh = dhz + dhv (dh z of the step, and
+// dhw_t wh^T) lives in [B, H] scratch that only the block owning those
+// rows and columns touches (ordered by __syncthreads, L1-resident), so a
+// block's shared memory holds only its rows of wh and one staged chunk.
+__global__ void __launch_bounds__(REC_THREADS)
+gru_bwd_rec_kernel(const float* __restrict__ xw, const float* __restrict__ wh,
+                   const float* __restrict__ hw, const float* __restrict__ ys,
+                   const float* __restrict__ dys, float* __restrict__ dxw, float* dhw, float* dhz,
+                   float* dhv, unsigned* bar, int B, int T, int H, Plan pl, int rev) {
+  extern __shared__ __align__(16) float smem[];
+  const int H3 = 3 * H, tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = blockIdx.x / pl.NK, q = blockIdx.x % pl.NK;
+  const int k0 = q * pl.kc, nk = min(pl.kc, H - k0), b0 = g * pl.nb, nb = min(pl.nb, B - b0);
+  float* wh_s = smem;                  // [kc][3H]: rows k0 .. k0+nk-1 of wh
+  float* st_s = wh_s + pl.kc * H3;     // [cb][3H]: a chunk of the group's rows of dhw_t
+  float* red_s = st_s + pl.cb * H3;    // [slots][RB * KG]: warp partial sums
+  unsigned* gbar = bar + 2 * g;
+  for (int i = tid; i < nk * H3; i += REC_THREADS) wh_s[i] = wh[static_cast<long>(k0) * H3 + i];
   __syncthreads();
 
-  const int w = tid / 32, lane = tid % 32, k = k0 + w;
-  if (k >= H) return;
-  float acc[BB];
+  const int nct = (nk + KG - 1) / KG;
+  for (int s = 0; s < T; ++s) {
+    const int t = rev ? s : T - 1 - s;
+    const bool first = rev ? t == T - 1 : t == 0;  // the scan's first step: h_{t-1} = 0
+    const int tp = rev ? t + 1 : t - 1;
+    for (int idx = tid; idx < nb * nk; idx += REC_THREADS) {
+      const int bb = idx / nk, kk = idx % nk, b = b0 + bb, j = k0 + kk;
+      const long row = static_cast<long>(b) * T + t, o = static_cast<long>(b) * H + j;
+      const float* x = xw + row * H3;
+      const float* gw = hw + row * H3;
+      const float hp = first ? 0.f : ys[(static_cast<long>(b) * T + tp) * H + j];
+      const float dh = (s ? dhz[o] + dhv[o] : 0.f) + dys[row * H + j];
+      const float hn = gw[2 * H + j];
+      const float r = sigmoid(x[j] + gw[j]);
+      const float z = sigmoid(x[H + j] + gw[H + j]);
+      const float n = tanhf(x[2 * H + j] + r * hn);
+      const float dn = dh * (1.f - z) * (1.f - n * n);
+      const float dz = dh * (hp - n) * z * (1.f - z);
+      const float dr = dn * hn * r * (1.f - r);
+      float* dx = dxw + row * H3;
+      float* dg = dhw + row * H3;
+      dx[j] = dr;
+      dx[H + j] = dz;
+      dx[2 * H + j] = dn;
+      dg[j] = dr;
+      dg[H + j] = dz;
+      dg[2 * H + j] = dn * r;
+      dhz[o] = dh * z;
+    }
+    if (s == T - 1) break;  // the carry into the first step is not an output
+    zs::grid_barrier(gbar, pl.NK);
+
+    for (int c0 = 0; c0 < nb; c0 += pl.cb) {  // the same chunks in every thread
+      const int n_rows = min(pl.cb, nb - c0);
+      if ((H3 & 3) == 0) {
+        stage_rows<float4>(st_s, dhw, b0 + c0, n_rows, t, T, H3 / 4);
+      } else {
+        stage_rows<float>(st_s, dhw, b0 + c0, n_rows, t, T, H3);
+      }
+      __syncthreads();
+      const int nt = ((n_rows + RB - 1) / RB) * nct, splits = nt < NWARPS ? NWARPS / nt : 1;
+      for (int wt = warp; wt < nt * splits; wt += NWARPS) {
+        const int tile = wt % nt, sp = wt / nt, rt = tile / nct, ct = tile % nct;
+        const float* rows[RB];
+        const float* cols[KG];
 #pragma unroll
-  for (int bb = 0; bb < BB; ++bb) acc[bb] = 0.f;
-  const float* wrow = wh + static_cast<long>(k) * H3;
-  for (int n = lane; n < H3; n += 32) {
-    const float wv = __ldg(wrow + n);
+        for (int i = 0; i < RB; ++i) rows[i] = st_s + min(rt * RB + i, n_rows - 1) * H3;
 #pragma unroll
-    for (int bb = 0; bb < BB; ++bb) acc[bb] = fmaf(dhw_s[bb * H3 + n], wv, acc[bb]);
-  }
+        for (int c = 0; c < KG; ++c) cols[c] = wh_s + min(ct * KG + c, nk - 1) * H3;
+        float acc[RB][KG] = {};
+#pragma unroll 4
+        for (int n = sp * 32 + lane; n < H3; n += 32 * splits) {
+          float w[KG];
 #pragma unroll
-  for (int bb = 0; bb < BB; ++bb)
+          for (int c = 0; c < KG; ++c) w[c] = cols[c][n];
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) acc[bb] += __shfl_xor_sync(0xffffffffu, acc[bb], off);
-  if (lane < BB && b0 + lane < B) {
-    float v = 0.f;
+          for (int i = 0; i < RB; ++i) {
+            const float d = rows[i][n];
 #pragma unroll
-    for (int bb = 0; bb < BB; ++bb)
-      if (bb == lane) v = acc[bb];
-    dh_out[static_cast<long>(b0 + lane) * H + k] = dhz_s[lane * KC + w] + v;
+            for (int c = 0; c < KG; ++c) acc[i][c] = fmaf(d, w[c], acc[i][c]);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < RB; ++i)
+#pragma unroll
+          for (int c = 0; c < KG; ++c) {
+#pragma unroll
+            for (int off = 16; off > 0; off >>= 1)
+              acc[i][c] += __shfl_xor_sync(0xffffffffu, acc[i][c], off);
+            if (lane == 0) red_s[wt * RB * KG + i * KG + c] = acc[i][c];
+          }
+      }
+      __syncthreads();
+      for (int idx = tid; idx < n_rows * nk; idx += REC_THREADS) {
+        const int bb = idx / nk, kk = idx % nk;
+        const int tile = (bb / RB) * nct + kk / KG, e = (bb % RB) * KG + kk % KG;
+        float v = 0.f;
+        for (int sp = 0; sp < splits; ++sp) v += red_s[(sp * nt + tile) * RB * KG + e];
+        dhv[static_cast<long>(b0 + c0 + bb) * H + k0 + kk] = v;
+      }
+      __syncthreads();  // st_s and red_s are refilled by the next chunk
+    }
   }
 }
 
@@ -196,40 +350,80 @@ __global__ void col_sum_kernel(const float* __restrict__ a, float* __restrict__ 
 
 ZS_DEFINE_ERROR_STRING
 
+// Returned by zs_gru_bwd when no spread of wh fits (the wrapper raises
+// ValueError); every other non-zero return is a CUDA error.
+constexpr int kNoSpread = -1;
+
+namespace {
+
+cudaError_t card(int* n_sm, int* optin) {
+  int dev;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (!e) e = cudaDeviceGetAttribute(n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (!e) e = cudaDeviceGetAttribute(optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return e;
+}
+
+}  // namespace
+
+// The spread zs_gru_bwd picks on the current device (plan[0..5] = kc, nb,
+// cb, NK, NB, a block's shared memory in bytes; all 0 when none fits), for
+// diagnostics. Returns a CUDA error.
+ZS_EXPORT int zs_gru_bwd_plan(int* plan, int B, int H) {
+  int n_sm, optin;
+  if (cudaError_t e = card(&n_sm, &optin)) return e;
+  Plan p{};
+  const bool ok = make_plan(p, B, H, n_sm, static_cast<size_t>(optin));
+  const int v[6] = {p.kc, p.nb, p.cb, p.NK, p.NB, ok ? static_cast<int>(rec_smem_bytes(p, H)) : 0};
+  for (int i = 0; i < 6; ++i) plan[i] = ok ? v[i] : 0;
+  return cudaSuccess;
+}
+
 // Inputs xw [B, T, 3H], wh [H, 3H], bh [3H], ys [B, T, H], dys [B, T, H];
 // outputs dxw [B, T, 3H], dwh [H, 3H], dbh [3H]; scratch hw and dhw
-// [B, T, 3H], dh [2, B, H].
+// [B, T, 3H], dhz and dhv [B, H] (the carry) and bar [2 x the SM count]
+// (the batch groups' barrier words). Returns kNoSpread or a CUDA error.
 ZS_EXPORT int zs_gru_bwd(const float* xw, const float* wh, const float* bh, const float* ys,
                          const float* dys, float* dxw, float* dwh, float* dbh, float* hw,
-                         float* dhw, float* dh, int B, int T, int H, void* stream) {
+                         float* dhw, float* dhz, float* dhv, unsigned* bar, int B, int T, int H,
+                         int rev, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int H3 = 3 * H, M = B * T;
-  cudaError_t e = cudaMemsetAsync(dh, 0, static_cast<size_t>(B) * H * sizeof(float), st);
+  int n_sm, optin;
+  cudaError_t e = card(&n_sm, &optin);
   if (e != cudaSuccess) return e;
+  Plan pl;
+  if (!make_plan(pl, B, H, n_sm, static_cast<size_t>(optin))) return kNoSpread;
+  if ((e = cudaMemsetAsync(bar, 0, 2 * pl.NB * sizeof(unsigned), st))) return e;
 
   hprev_gemm_kernel<false><<<dim3((H3 + TN - 1) / TN, (M + TM - 1) / TM), GEMM_THREADS, 0, st>>>(
-      ys, wh, bh, hw, M, H3, H, T, H);
-  e = cudaGetLastError();
+      ys, wh, bh, hw, M, H3, H, H, T, H, rev);
+  if ((e = cudaGetLastError())) return e;
+
+  const size_t smem = rec_smem_bytes(pl, H);
+  if ((e = zs::allow_smem(gru_bwd_rec_kernel, smem))) return e;
+  const float* hw_c = hw;
+  void* args[] = {&xw, &wh, &hw_c, &ys, &dys, &dxw, &dhw, &dhz, &dhv, &bar, &B, &T, &H, &pl, &rev};
+  e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(gru_bwd_rec_kernel),
+                                  dim3(pl.NK * pl.NB), dim3(REC_THREADS), args, smem, st);
   if (e != cudaSuccess) return e;
 
-  const size_t smem = static_cast<size_t>(BB * H3 + BB * KC) * sizeof(float);
-  e = zs::allow_smem(gru_bwd_step_kernel, smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((H + KC - 1) / KC, (B + BB - 1) / BB);
-  for (int s = 0; s < T; ++s) {
-    const int t = T - 1 - s;
-    const float* dh_in = dh + static_cast<long>(s % 2) * B * H;
-    float* dh_out = dh + static_cast<long>((s + 1) % 2) * B * H;
-    gru_bwd_step_kernel<<<grid, STEP_THREADS, smem, st>>>(xw, wh, hw, ys, dys, dh_in, dh_out, dxw,
-                                                          dhw, B, T, H, t);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
+  // dwh in S K-slices (enough blocks to fill the card), their partial
+  // products in hw (free once the recurrence is done: B T 3H >= S H 3H
+  // floats), summed in a fixed order
+  const dim3 tiles_dwh((H3 + TN - 1) / TN, (H + TM - 1) / TM);
+  int S = 2 * n_sm / static_cast<int>(tiles_dwh.x * tiles_dwh.y);
+  S = S < 1 ? 1 : S > 8 ? 8 : S;
+  if (S > M / H) S = M / H > 1 ? M / H : 1;
+  const int kslice = ((M + S - 1) / S + TK - 1) / TK * TK;
+  S = (M + kslice - 1) / kslice;
+  hprev_gemm_kernel<true><<<dim3(tiles_dwh.x, tiles_dwh.y, S), GEMM_THREADS, 0, st>>>(
+      ys, dhw, nullptr, S > 1 ? hw : dwh, H, H3, M, kslice, T, H, rev);
+  if ((e = cudaGetLastError())) return e;
+  if (S > 1) {
+    sum_partials_kernel<<<2 * n_sm, 256, 0, st>>>(hw, dwh, S, static_cast<long>(H) * H3);
+    if ((e = cudaGetLastError())) return e;
   }
-
-  hprev_gemm_kernel<true><<<dim3((H3 + TN - 1) / TN, (H + TM - 1) / TM), GEMM_THREADS, 0, st>>>(
-      ys, dhw, nullptr, dwh, H, H3, M, T, H);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
   col_sum_kernel<<<(H3 + 31) / 32, 256, 0, st>>>(dhw, dbh, M, H3);
   return cudaGetLastError();
 }

@@ -86,14 +86,15 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def bind(lib: ctypes.CDLL, fn: str, n_ptr: int, n_int: int, n_float: int = 0):
+def bind(lib: ctypes.CDLL, fn: str, n_ptr: int, n_int: int, n_float: int = 0, stream: bool = True):
     """A C entry point taking ``n_ptr`` pointers, ``n_int`` ints,
-    ``n_float`` floats and the stream, returning a cudaError_t."""
+    ``n_float`` floats and (unless ``stream`` is False) the stream,
+    returning an int (a cudaError_t for a launch)."""
     f = getattr(lib, fn)
     f.restype = ctypes.c_int
     f.argtypes = (
         [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-        + [ctypes.c_float] * n_float + [ctypes.c_void_p]
+        + [ctypes.c_float] * n_float + ([ctypes.c_void_p] if stream else [])
     )
     return f
 

@@ -16,7 +16,11 @@ where stft analyses the UNTRIMMED overlap-add signal (frame t = samples
 ``_fused_wss(cfg, t)``. The output is trimmed to the librosa span
 ``[lead, lead + (t-1)*hop)``. Any t >= 1 works (the TPU kernel needed
 t >= 2r and three length tiers). :func:`griffin_lim` launches the kernel on
-a CUDA tensor and runs :func:`griffin_lim_plain` on a CPU tensor.
+a CUDA tensor and runs :func:`griffin_lim_plain` on a CPU tensor. The
+plain version contracts the window-folded DFT bases; the kernel computes
+the same frames with FFTs (rfft of the windowed frame placed at lpad of an
+n_fft buffer; irfft sliced to [lpad, lpad + win) and windowed), so it
+takes a power-of-two n_fft (16 to 1024) only.
 """
 
 from __future__ import annotations
@@ -40,13 +44,32 @@ def _bases(cfg: AudioConfig, device: str):
 
 
 @functools.lru_cache(maxsize=16)
-def _kernel_synthesis_bases(cfg: AudioConfig, device: str):
-    """(cs, ss) zero-padded to [F rounded up to 4, win]: the synthesis
-    kernel reads its staged spectra four bins at a time."""
-    _, _, cs, ss = dsp_audio._fused_bases(cfg)
-    fp = -(-cfg.n_freq // 4) * 4
-    pad = ((0, fp - cfg.n_freq), (0, 0))
-    return tuple(torch.from_numpy(np.pad(a, pad)).to(device) for a in (cs, ss))
+def _fft_tables(cfg: AudioConfig, device: str):
+    """The kernel's tables, f32 on ``device``, computed in float64: the
+    window's support [win]; the four-step FFT's twiddles W^(k1 l) =
+    exp(-2 pi i k1 l / n_fft) [P, L + 1, 2] (n_fft = P x L, L = 2^(lg // 2),
+    column L padding); and exp(-2 pi i k / 32) [16, 2] for the register
+    FFTs of at most 32 points."""
+    n = cfg.n_fft
+    lpad = (n - cfg.win_length) // 2
+    win = dsp_audio._window(cfg)[lpad : lpad + cfg.win_length]
+    lanes = 1 << ((n.bit_length() - 1) // 2)
+    ang = -2.0 * np.pi * np.outer(np.arange(n // lanes), np.arange(lanes + 1)) / n
+    w32 = -2.0 * np.pi * np.arange(16) / 32
+    tw, w32 = (np.stack([np.cos(a), np.sin(a)], axis=-1).astype(np.float32) for a in (ang, w32))
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in (win, tw, w32))
+
+
+def _kernel_limits(cfg: AudioConfig) -> int:
+    """log2 n_fft for the kernel (csrc/griffin_lim.cu), which runs
+    power-of-two FFTs of 16 to 1024 points in registers and owns at least
+    17 - win/hop output rows a block."""
+    n = cfg.n_fft
+    if n & (n - 1) or not 16 <= n <= 1024:
+        raise ValueError(f"griffin-lim kernel: n_fft={n} is not a power of two from 16 to 1024")
+    if cfg.win_length // cfg.hop_length > 16:
+        raise ValueError(f"griffin-lim kernel: win/hop = {cfg.win_length // cfg.hop_length} > 16")
+    return n.bit_length() - 1
 
 
 @functools.lru_cache(maxsize=32)
@@ -103,25 +126,26 @@ def griffin_lim_plain(mag: torch.Tensor, cfg: AudioConfig, n_iters: int | None =
 
 def griffin_lim(mag: torch.Tensor, cfg: AudioConfig, n_iters: int | None = None):
     """Same contract as :func:`griffin_lim_plain`; the CUDA kernel on a CUDA
-    tensor (2 * n_iters + 3 launches from one C call)."""
+    tensor (four-step FFTs in registers, so n_fft must be a power of two
+    from 16 to 1024, and win/hop at most 16; n_iters + 2 launches from one
+    C call)."""
     if mag.device.type == "cpu":
         return griffin_lim_plain(mag, cfg, n_iters)
     n_iters = _prepare(mag, cfg, n_iters)
+    lg = _kernel_limits(cfg)
     b, t, f = mag.shape
     build.require(mag, "griffin-lim mag", (b, t, f))
     hop, win = cfg.hop_length, cfg.win_length
     n_sig = (t - 1 + win // hop) * hop
-    ca, sa, _, _ = _bases(cfg, str(mag.device))
-    cs, ss = _kernel_synthesis_bases(cfg, str(mag.device))
+    win_w, tw, w32 = _fft_tables(cfg, str(mag.device))
     wss_inv = _wss_inv(cfg, t, str(mag.device))
-    sre, sim = torch.empty_like(mag), torch.empty_like(mag)
-    u, v, out = (torch.empty(b, n_sig, device=mag.device) for _ in range(3))
+    u, va, vb, out = (torch.empty(b, n_sig, device=mag.device) for _ in range(4))
     lib = build.load("griffin_lim")
-    fn = build.bind(lib, "zs_griffin_lim", 11, 6, 1)
+    fn = build.bind(lib, "zs_griffin_lim", 9, 6, 1)
     err = fn(
-        mag.data_ptr(), ca.data_ptr(), sa.data_ptr(), cs.data_ptr(), ss.data_ptr(),
-        wss_inv.data_ptr(), sre.data_ptr(), sim.data_ptr(), u.data_ptr(), v.data_ptr(),
-        out.data_ptr(), b, t, f, win, hop, n_iters, cfg.gl_momentum, build.stream_of(mag),
+        mag.data_ptr(), win_w.data_ptr(), tw.data_ptr(), w32.data_ptr(), wss_inv.data_ptr(), u.data_ptr(),
+        va.data_ptr(), vb.data_ptr(), out.data_ptr(), b, t, lg, win, hop, n_iters,
+        cfg.gl_momentum, build.stream_of(mag),
     )
     build.check(lib, err, "griffin-lim kernel")
     global launches

@@ -16,8 +16,9 @@ encoding). :func:`gru_scan` launches the kernel on a CUDA tensor and runs
 
 Training differentiates through :class:`GRUScan`: kernel 2 forward,
 kernel 3 (:func:`gru_bwd`, plain version :func:`gru_bwd_plain`) backward.
-Backward math (``pallas_gru.py:195-207``), in reverse time with h_{t-1} =
-ys shifted right by one step (h0 = 0) and r, z, n recomputed from it:
+Backward math (``pallas_gru.py:195-207``), walking the scan's steps
+backwards with h_{t-1} = ys one step earlier in the scan's own order (0 at
+its first step) and r, z, n recomputed from it:
 
     dh    += dys_t                   (carry from t+1 starts at 0)
     dn^    = dh (1-z) (1-n^2);       dz^ = dh (h_{t-1} - n) z (1-z)
@@ -103,17 +104,20 @@ def _bwd_check(xw, wh, bh, ys, dys):
     return b, t, h
 
 
-def gru_bwd_plain(xw, wh, bh, ys, dys):
+def gru_bwd_plain(xw, wh, bh, ys, dys, *, reverse: bool = False):
     """Plain PyTorch version of kernel 3, the backward pass of the unmasked
-    forward-time scan, step by step: (xw [B, T, 3H], wh [H, 3H], bh [3H],
-    ys, dys [B, T, H]) -> (dxw [B, T, 3H], dwh [H, 3H], dbh [3H])."""
+    scan, step by step: (xw [B, T, 3H], wh [H, 3H], bh [3H], ys, dys
+    [B, T, H]) -> (dxw [B, T, 3H], dwh [H, 3H], dbh [3H]). ``reverse``: the
+    scan ran back to front (:func:`gru_scan` with ``reverse=True``), so
+    h_{t-1} is ``ys[:, t+1]`` and the backward pass walks time forwards."""
     b, t, h = _bwd_check(xw, wh, bh, ys, dys)
-    hprev = torch.cat([ys.new_zeros(b, 1, h), ys[:, :-1]], dim=1)
+    zero = ys.new_zeros(b, 1, h)
+    hprev = torch.cat([ys[:, 1:], zero], dim=1) if reverse else torch.cat([zero, ys[:, :-1]], dim=1)
     dh = xw.new_zeros(b, h)
     dxw = torch.empty_like(xw)
     dwh = wh.new_zeros(h, 3 * h)
     dbh = bh.new_zeros(3 * h)
-    for ti in range(t - 1, -1, -1):
+    for ti in range(t) if reverse else range(t - 1, -1, -1):
         hp = hprev[:, ti]
         hw = hp @ wh + bh
         xr, xz, xn = xw[:, ti].split(h, dim=-1)
@@ -133,30 +137,59 @@ def gru_bwd_plain(xw, wh, bh, ys, dys):
     return dxw, dwh, dbh
 
 
-def gru_bwd(xw, wh, bh, ys, dys):
+_NO_SPREAD = -1  # zs_gru_bwd: no spread of wh over the co-resident blocks fits
+
+
+def bwd_plan(device: torch.device, b: int, h: int) -> tuple[int, ...]:
+    """Diagnostic: the spread of kernel 3's dh recurrence that
+    ``zs_gru_bwd`` picks on ``device`` (csrc/gru_bwd.cu ``make_plan``): dh
+    columns and batch rows a block, staged rows a chunk, column groups,
+    batch groups, and a block's dynamic shared memory in bytes; all 0 when
+    none fits."""
+    lib = build.load("gru_bwd")
+    plan = torch.zeros(6, dtype=torch.int32)
+    with torch.cuda.device(device):
+        err = build.bind(lib, "zs_gru_bwd_plan", 1, 2, stream=False)(plan.data_ptr(), b, h)
+    build.check(lib, err, "gru_bwd plan")
+    return tuple(plan.tolist())
+
+
+def gru_bwd(xw, wh, bh, ys, dys, *, reverse: bool = False):
     """Same contract as :func:`gru_bwd_plain`; kernel 3 (csrc/gru_bwd.cu)
-    on a CUDA tensor: a parallel pass for hw = h_{t-1} wh + bh, T step
-    launches for the serial dh recurrence, then a tiled reduction for dwh
-    and a column sum for dbh, all issued from one C call."""
+    on a CUDA tensor: a parallel pass for hw = h_{t-1} wh + bh, ONE
+    cooperative launch for the whole serial dh recurrence (at most a block
+    per SM, each owning some batch rows and columns of dh with its rows of
+    wh resident in shared memory, a barrier per batch group between
+    steps), then a tiled reduction for dwh and a column sum for dbh, all
+    issued from one C call. Any B; raises ValueError when a block's rows
+    of wh (ceil(H / SMs) x 3H f32, plus one staged row) exceed its shared
+    memory on every spread (H above ~1,480 on an H100)."""
     if xw.device.type == "cpu":
-        return gru_bwd_plain(xw, wh, bh, ys, dys)
+        return gru_bwd_plain(xw, wh, bh, ys, dys, reverse=reverse)
     b, t, h = _bwd_check(xw, wh, bh, ys, dys)
     for arr, what, shape in ((xw, "xw", (b, t, 3 * h)), (wh, "wh", (h, 3 * h)), (bh, "bh", (3 * h,)),
                              (ys, "ys", (b, t, h)), (dys, "dys", (b, t, h))):
         build.require(arr, f"gru_bwd {what}", shape, device=xw.device)
-    dxw = torch.empty(b, t, 3 * h, device=xw.device)
-    dwh = torch.empty(h, 3 * h, device=xw.device)
-    dbh = torch.empty(3 * h, device=xw.device)
-    hw = torch.empty(b, t, 3 * h, device=xw.device)  # scratch: h_{t-1} wh + bh
-    dhw = torch.empty(b, t, 3 * h, device=xw.device)  # scratch: recurrent-gate grads
-    dh = torch.empty(2, b, h, device=xw.device)  # scratch: ping-pong dh carry
+    dev = xw.device
+    dxw = torch.empty(b, t, 3 * h, device=dev)
+    dwh = torch.empty(h, 3 * h, device=dev)
+    dbh = torch.empty(3 * h, device=dev)
+    hw = torch.empty(b, t, 3 * h, device=dev)  # scratch: h_{t-1} wh + bh
+    dhw = torch.empty(b, t, 3 * h, device=dev)  # scratch: recurrent-gate grads
+    carry = torch.empty(2, b, h, device=dev)  # scratch: the dh carry (dh z, dhw wh^T)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    bar = torch.empty(2 * n_sm, dtype=torch.int32, device=dev)  # scratch: group barriers
     lib = build.load("gru_bwd")
-    fn = build.bind(lib, "zs_gru_bwd", 11, 3)
+    fn = build.bind(lib, "zs_gru_bwd", 13, 4)
     err = fn(
         xw.data_ptr(), wh.data_ptr(), bh.data_ptr(), ys.data_ptr(), dys.data_ptr(),
         dxw.data_ptr(), dwh.data_ptr(), dbh.data_ptr(), hw.data_ptr(), dhw.data_ptr(),
-        dh.data_ptr(), b, t, h, build.stream_of(xw),
+        carry[0].data_ptr(), carry[1].data_ptr(), bar.data_ptr(), b, t, h, int(reverse),
+        build.stream_of(xw),
     )
+    if err == _NO_SPREAD:
+        raise ValueError(f"gru_bwd: H={h} does not fit: a block's rows of wh exceed its shared "
+                         "memory on every spread over the co-resident blocks")
     build.check(lib, err, "gru_bwd kernel")
     global bwd_launches
     bwd_launches += 1
@@ -166,8 +199,8 @@ def gru_bwd(xw, wh, bh, ys, dys):
 class GRUScan(torch.autograd.Function):
     """Differentiable unmasked GRU scan (the counterpart of
     ``pallas_gru.py::gru_scan_diff``): kernel 2 forward, kernel 3 backward
-    on CUDA tensors, their plain versions on CPU tensors. A reverse scan
-    conjugates the backward pass by time flips."""
+    on CUDA tensors, their plain versions on CPU tensors. Both walk a
+    reverse scan's time the other way themselves (no flipped copies)."""
 
     @staticmethod
     def forward(ctx, xw, wh, bh, reverse: bool):
@@ -180,10 +213,5 @@ class GRUScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dys):
         xw, wh, bh, ys = ctx.saved_tensors
-        dys = dys.contiguous()
-        if ctx.reverse:
-            xw, ys, dys = (a.flip(1).contiguous() for a in (xw, ys, dys))
-        dxw, dwh, dbh = gru_bwd(xw, wh, bh, ys, dys)
-        if ctx.reverse:
-            dxw = dxw.flip(1)
+        dxw, dwh, dbh = gru_bwd(xw, wh, bh, ys, dys.contiguous(), reverse=ctx.reverse)
         return dxw, dwh, dbh, None

@@ -163,12 +163,17 @@ def init_params(hps: Hps, seed: int = 0, names=("enc", "dec")) -> dict:
 
 
 def train_state_from_flax(hps: Hps, params: dict, adam: dict | None = None, step: int = 0,
-                          train_start: int = -1, device="cpu"):
-    """A port ``TrainState`` (train/solver.py) from a JAX one's numpy
-    leaves: ``params`` {"enc", "dec", "clf", "dis"} flax trees, ``adam``
-    {name: (count, mu, nu)} from each module's optax Adam state, and the
-    step counters. The generator is seeded with 0."""
+                          train_start: int = -1, device: str | torch.device = "cuda"):
+    """A port ``TrainState`` (train/solver.py) on ``device`` (the card
+    unless the caller asks for the CPU) from a JAX one's numpy leaves:
+    ``params`` {"enc", "dec", "clf", "dis"} flax trees, ``adam`` {name:
+    (count, mu, nu)} from each module's optax Adam state, and the step
+    counters. The generator is seeded with 0."""
     from zerospeech_tts_tpu_torch.train.solver import TrainState
+
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device}: no CUDA device is visible")
 
     sds = state_dicts_from_flax(params)
     mods = {}
