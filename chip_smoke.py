@@ -7,18 +7,22 @@
 2. Builds the four hand-written kernels from csrc/ with nvcc (sm_90a), all
    at once.
 3. Holds each kernel against its plain PyTorch version on the card at its
-   path's flagship shapes and times both, beside the card's least time for
+   path's flagship shapes (kernel 1 also on full-scale frames) and times
+   both, beside the card's least time for
    the same work and, where one PyTorch call computes the same function,
-   that call's time; holds GRUScan's gradients against cuDNN nn.GRU.
+   that call's time; holds GRUScan's gradients against cuDNN nn.GRU;
+   prints kernel 2's spread (column x batch groups, shared memory) at the
+   paths' batch sizes and its time a step at B=16 for T=64 and T=512 (the
+   per-step chain apart from the launch's fixed cost).
 4. Conversion path: converts a seeded 8-wav, 2-target corpus at flagship
    width (hps/zerospeech.json, random weights from a seed, GL-100) through
    the port's CLI, counting kernel launches and keeping each kernel's
    inputs, checks the outputs, times kernels 1, 2 and 4 at the path's own
-   inputs (beside their plain versions and bounds), holds Griffin-Lim at
-   GL-100 on each of the path's buckets against its plain version (and
-   times the same recurrence as a loop of torch.fft calls, a yardstick),
-   and holds the card's conversion of one utterance against the plain CPU
-   path.
+   inputs (beside their plain versions and bounds; kernel 2 also per
+   step), holds Griffin-Lim at GL-100 on each of the path's buckets
+   against its plain version (and times the same recurrence as a loop of
+   torch.fft calls, a yardstick), and holds the card's conversion of one
+   utterance against the plain CPU path.
 5. Training path: a seeded 6-speaker wav corpus through the CLI at
    flagship width: preprocess -> train1 (4 iterations a phase) -> train1
    resumed -> train2 (one GAN cycle) -> export, counting kernel launches
@@ -93,8 +97,8 @@ def bound(flops: float, nbytes: float) -> dict:
 def rfft_flops(n: int) -> float:
     """Operations of one real FFT (or inverse) of n points: 2.5 n log2 n,
     half the usual 5 n log2 n of a complex one. The least work of a DFT,
-    whatever the kernel does (kernel 1 runs direct DFT products, kernel 4
-    packed complex four-step FFTs)."""
+    whatever the kernel does (kernels 1 and 4 run packed complex four-step
+    FFTs, kernel 1 also direct sums for its near-floor bins)."""
     return 2.5 * n * math.log2(n)
 
 
@@ -164,13 +168,17 @@ def work(name: str, args, kw) -> tuple[float, float]:
     """(FLOPs, bytes) of the least work of one call of a kernel's function
     on these inputs: each input read once, each output written once; for
     the frontend and Griffin-Lim an rfft or irfft of n_fft points per frame,
-    whatever the kernel runs."""
+    whatever the kernel runs, and for the frontend's mel product the mel
+    basis's nonzeros only (each bin lies in at most two bands)."""
     if name == "frontend":
+        from zerospeech_tts_tpu_torch.ops.frontend import mel_bands
+
         ypad, cfg, t = args
         b, nf, nm = ypad.shape[0], cfg.n_freq, cfg.n_mels
-        # a frame: window, rfft, |.|, mel product, both dB-norms
-        fl = b * t * (cfg.win_length + rfft_flops(cfg.n_fft) + 4 * nf + 2 * nf * nm + 5 * (nf + nm))
-        return fl, 4 * (ypad.numel() + nf * nm + cfg.win_length + b * t * (nf + nm))
+        nnz = mel_bands(cfg)[1].size
+        # a frame: window, rfft, |.|, mel product over the nonzeros, both dB-norms
+        fl = b * t * (cfg.win_length + rfft_flops(cfg.n_fft) + 4 * nf + 2 * nnz + 5 * (nf + nm))
+        return fl, 4 * (ypad.numel() + nnz + cfg.win_length + b * t * (nf + nm))
     if name == "gru":
         xw, wh, bh = args[:3]
         lengths = args[3] if len(args) > 3 else kw.get("lengths")
@@ -268,7 +276,7 @@ def main() -> None:
         from zerospeech_tts_tpu_torch.dsp import audio
         from zerospeech_tts_tpu_torch.ops import build, frontend, griffin_lim, gru
         from zerospeech_tts_tpu_torch.tools.workload import (
-            TARGETS, WAV_SAMPLES, cuda_ms, speechlike, write_train_corpus, write_workload,
+            TARGETS, WAV_SAMPLES, cuda_ms, fullscale, speechlike, write_train_corpus, write_workload,
         )
     except ImportError as e:
         fail(f"zerospeech_tts_tpu_torch is not importable beside {__file__} ({e})")
@@ -288,6 +296,11 @@ def main() -> None:
         for line in build.build_log.get(name, "").splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
+    for b in (1, 2, 6, 16, 32, 64):  # kernel 2: the conversion path's rows, the test shape, training's
+        kc, n_k, nb, n_b, cb, smem, rows, wreg = gru.scan_plan(dev, b, 512)
+        print(f"  gru recurrence B={b} H=512: {n_k} column groups x {n_b} batch groups = {n_k * n_b} "
+              f"blocks of {kc} columns x {nb} rows ({cb} staged at a time), {smem} B dynamic shared "
+              f"memory each, wh in {'registers and ' if wreg else ''}shared memory, {rows} rows a launch")
     for b, h in ((32, 512), (64, 512), (128, 512)):  # kernel 3's recurrence, training shapes
         kc, nb, cb, n_k, n_b, smem = gru.bwd_plan(dev, b, h)
         print(f"  gru_bwd recurrence B={b} H={h}: {n_k} column groups x {n_b} batch groups = "
@@ -309,6 +322,17 @@ def main() -> None:
     plain_ms = cuda_ms(lambda: frontend.frontend_plain(ypad, cfg, 512), 20)
     print(f"frontend 8x512: max_abs_err {err:.3e} (atol 1e-4)  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms")
     check(err <= 1e-4, f"frontend kernel disagrees with its plain version: {err}")
+    # full-scale frames: loud tones over quiet ones, a square wave, loud speech
+    y_loud = torch.from_numpy(np.stack([fullscale(n, s) for s in range(8)])).to(dev)
+    ypad_loud = audio.mirror_pad(audio.preemphasis(y_loud, cfg.preemphasis), cfg.n_fft // 2).contiguous()
+    mel_k, mag_k = frontend.fused_frontend(ypad_loud, cfg, 512)
+    torch.cuda.synchronize()
+    mel_l, mag_l = frontend.frontend_plain(ypad_loud, cfg, 512)
+    err_loud = max((mel_k - mel_l).abs().max().item(), (mag_k - mag_l).abs().max().item())
+    ms_loud = cuda_ms(lambda: frontend.fused_frontend(ypad_loud, cfg, 512), 20)
+    print(f"frontend 8x512 full scale: max_abs_err {err_loud:.3e} (atol 1e-4)  kernel {ms_loud:.3f} ms")
+    check(err_loud <= 1e-4, f"frontend kernel disagrees with its plain version on loud frames: {err_loud}")
+    err = max(err, err_loud)
     results["frontend"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
                                **bound(*work("frontend", (ypad, cfg, 512), {})))
 
@@ -319,20 +343,14 @@ def main() -> None:
         bh = (0.1 * torch.randn(3 * h, generator=g)).to(dev)
         return xw, wh, bh
 
-    def cudnn_gru(b, t, i, h, backward: bool):
-        """cuDNN nn.GRU at the same sizes (input size i: it includes the
-        input projection the port hoists out of the kernel) - a yardstick."""
+    def cudnn_gru_fwd_bwd(b, t, i, h):
+        """cuDNN nn.GRU forward + backward at the same sizes (input size i:
+        it includes the input projection the port hoists out of the
+        kernel) - a yardstick."""
         ref = torch.nn.GRU(i, h, batch_first=True).to(dev)
-        x = torch.randn(b, t, i, device=dev, requires_grad=backward)
+        x = torch.randn(b, t, i, device=dev, requires_grad=True)
         dy = torch.randn(b, t, h, device=dev)
-
-        def run():
-            if backward:
-                ref(x)[0].backward(dy)
-            else:
-                with torch.no_grad():
-                    ref(x)
-        return cuda_ms(run, 10)
+        return cuda_ms(lambda: ref(x)[0].backward(dy), 10)
 
     gru_errs, gru_ms = [], {}
     for tag, b, t, rev, masked in (("decoder fwd", 16, 512, False, False),
@@ -351,12 +369,20 @@ def main() -> None:
         check(e <= 1e-4, f"gru kernel ({tag}) disagrees with its plain version: {e}")
         gru_errs.append(e)
         gru_ms[tag] = (k_ms, p_ms)
+    # kernel 2's time a step at B=16: T=64 against T=512 separates the
+    # per-step chain from the launch's fixed cost
+    step_us = {}
+    for t in (64, 512):
+        xw, wh, bh = gru_weights(16, t, 512, 20)
+        step_us[t] = 1e3 * cuda_ms(lambda: gru.gru_scan(xw, wh, bh), 5) / t
+    fixed_us = (step_us[64] - step_us[512]) * 64 * 512 / (512 - 64)
+    print(f"gru B=16 H=512 per step: {step_us[64]:.3f} us at T=64, {step_us[512]:.3f} us at T=512 "
+          f"(chain {(512 * step_us[512] - 64 * step_us[64]) / (512 - 64):.3f} us a step, fixed "
+          f"{fixed_us:.1f} us a launch)", flush=True)
     b, t, h = 16, 512, 512
-    results["gru"] = dict(
+    results["gru"] = dict(  # library_ms: cuDNN nn.GRU forward, timed below beside the projection + kernel 2
         max_abs_err=max(gru_errs), ms=gru_ms["decoder fwd"][0], plain_ms=gru_ms["decoder fwd"][1],
-        library_ms=cudnn_gru(b, t, 640, h, backward=False),
         **bound(*work("gru", gru_weights(b, t, h, 0), {})))
-    print(f"gru library (cuDNN nn.GRU forward, input 640) {results['gru']['library_ms']:.3f} ms", flush=True)
 
     # kernel 3: decoder shape, encoder shape forward and reverse, the
     # encoder at twice the batch (rows staged in two chunks), ragged B and
@@ -380,7 +406,7 @@ def main() -> None:
         if tag in ("decoder", "encoder fwd"):
             k_ms = cuda_ms(lambda: gru.gru_bwd(xw, wh, bh, ys, dys), 5)
             p_ms = cuda_ms(lambda: gru.gru_bwd_plain(xw, wh, bh, ys, dys), 2)
-            lib_ms = cudnn_gru(b, t, 640 if tag == "decoder" else 1024, h, backward=True)
+            lib_ms = cudnn_gru_fwd_bwd(b, t, 640 if tag == "decoder" else 1024, h)
             bwd_times[tag] = (k_ms, p_ms, lib_ms)
             line += f"  kernel {k_ms:.3f} ms  plain {p_ms:.3f} ms  cuDNN GRU fwd+bwd {lib_ms:.3f} ms"
         print(line, flush=True)
@@ -445,6 +471,7 @@ def main() -> None:
             runs.append(cuda_ms(fn, 4))
     med = {k: statistics.median(runs) for k, (_, runs) in pairs.items()}
     results["gru_vs_cudnn"] = {k: dict(median=med[k], runs=runs) for k, (_, runs) in pairs.items()}
+    results["gru"]["library_ms"] = med["cudnn_fwd_ms"]  # the one cuDNN forward reading of this run
     print(f"GRUScan fwd+bwd (projection + kernels 2, 3) {med['gruscan_fwd_bwd_ms']:.3f} ms vs cuDNN nn.GRU "
           f"fwd+bwd {med['cudnn_fwd_bwd_ms']:.3f} ms (B=32 T=128 I=640, medians of 7): "
           f"{med['gruscan_fwd_bwd_ms'] / med['cudnn_fwd_bwd_ms']:.3f}x; projection + kernel 2 "
@@ -553,6 +580,10 @@ def main() -> None:
               f"{conv_launches[name]} launches")
         print(f"{name} on the conversion path: {pt['launches']} launches, {len(pt['shapes'])} shapes: "
               f"kernel {pt['ms']:.3f} ms  plain {pt['plain_ms']:.3f} ms  bound {pt['bound_ms']:.4f} ms", flush=True)
+    steps = sum(count * args[0].shape[1] for args, kw, count in conv_calls["gru"].values())
+    path["gru"]["steps"] = steps
+    print(f"gru on the conversion path: {steps} steps, {1e3 * path['gru']['ms'] / steps:.3f} us a step",
+          flush=True)
 
     # Griffin-Lim at GL-100 on the path's own inputs (the decoder's
     # magnitudes, one call per bucket): consistency within 1e-3 of the
@@ -627,7 +658,7 @@ def main() -> None:
     (OUT / "result.json").write_text(json.dumps(
         dict(kernels=kernels, launches_by_path=by_path, conversion_wall_s=wall,
              utterances_per_s=len(WAV_SAMPLES) / wall,
-             gru_like_for_like=results["gru_vs_cudnn"],
+             gru_like_for_like=results["gru_vs_cudnn"], gru_step_us_b16=step_us,
              gl_rel_l2=results["griffin_lim"]["rel_l2"], gl100_conversion=gl100, path=path,
              reference_unit_agreement=agree,
              reference_pcm_rel_l2=pcm_rel, training=train,

@@ -16,6 +16,7 @@ import torch
 from zerospeech_tts_tpu_torch.config import AudioConfig
 from zerospeech_tts_tpu_torch.dsp import audio
 from zerospeech_tts_tpu_torch.ops import frontend, griffin_lim, gru
+from zerospeech_tts_tpu_torch.tools.workload import fullscale
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(1)
@@ -35,51 +36,70 @@ def _noisy_tones(n, seed):
     return (y + 0.05 * rng.standard_normal(n)).astype(np.float32)
 
 
-# "hop50": hop and win not multiples of 4, the analysis loop's scalar path
+# "hop50": hop and win not multiples of 4
 CONFIGS = {"default": {}, "small": dict(n_fft=256, hop_length=64, win_length=256, n_mels=20),
            "hop50": dict(n_fft=256, hop_length=50, win_length=250, n_mels=20)}
+# every other n_fft kernels 1 and 4 take: their FFTs are built per log2
+# n_fft, n_fft = P x L with P = L (even) or P = 2L (odd: 32, 128, 512)
+FFT_SIZES = {f"n{n}": dict(n_fft=n, hop_length=n // 4, win_length=n) for n in (16, 32, 64, 128, 512)}
 
 
-@pytest.mark.parametrize("cfg_kw", CONFIGS.values(), ids=CONFIGS.keys())
-def test_frontend_kernel_matches_plain(cuda, cfg_kw):
+@pytest.mark.parametrize("t", [500, 499], ids=["even", "odd"])  # odd: a ragged last frame pair
+@pytest.mark.parametrize("cfg_kw", {**CONFIGS, **FFT_SIZES}.values(), ids={**CONFIGS, **FFT_SIZES}.keys())
+def test_frontend_kernel_matches_plain(cuda, cfg_kw, t):
     cfg = AudioConfig(**cfg_kw)
     n = 512 * cfg.hop_length - 1  # 512 frames
     y = torch.from_numpy(np.stack([_noisy_tones(n, s) for s in range(8)])).to(cuda)
     lens = torch.tensor([n, n - 900, n // 2, n // 3, n, n - 1, 1000, n // 5], device=cuda)
     ypad = audio.mirror_pad(audio.preemphasis(y, cfg.preemphasis), cfg.n_fft // 2, lens).contiguous()
     before = frontend.launches
-    mel, mag = frontend.fused_frontend(ypad, cfg, 500)  # 500: a ragged last frame tile
+    mel, mag = frontend.fused_frontend(ypad, cfg, t)
     torch.cuda.synchronize()
     assert frontend.launches == before + 1
-    pmel, pmag = frontend.frontend_plain(ypad, cfg, 500)
+    pmel, pmag = frontend.frontend_plain(ypad, cfg, t)
     torch.testing.assert_close(mag, pmag, atol=1e-4, rtol=0)
     torch.testing.assert_close(mel, pmel, atol=1e-4, rtol=0)
 
 
-@pytest.mark.parametrize("b,t,h,reverse,masked", [
-    (16, 512, 512, False, False),  # decoder
-    (8, 64, 512, True, True),      # encoder backward direction, bucket-padded
-    (8, 64, 512, True, False),
-    (3, 7, 40, False, False),      # ragged: H and B not multiples of the tiles
-])
-def test_gru_kernel_matches_plain(cuda, b, t, h, reverse, masked):
-    gen = torch.Generator().manual_seed(t)
-    xw = torch.randn(b, t, 3 * h, generator=gen).to(cuda)
-    wh = (torch.randn(h, 3 * h, generator=gen) / math.sqrt(h)).to(cuda)
-    bh = (0.1 * torch.randn(3 * h, generator=gen)).to(cuda)
-    lens = torch.randint(1, t + 1, (b,), generator=gen, dtype=torch.int32).to(cuda) if masked else None
-    before = gru.launches
-    out = gru.gru_scan(xw, wh, bh, lens, reverse=reverse)
+@pytest.mark.parametrize("cfg_kw", CONFIGS.values(), ids=CONFIGS.keys())
+def test_frontend_kernel_matches_plain_on_loud_frames(cuda, cfg_kw):
+    """Full-scale frames (a loud tone over a quiet one, a square wave,
+    speech at full scale), whose quiet bins lie well above the fixed
+    near-floor range while both sums' rounding grows with the frame."""
+    cfg = AudioConfig(**cfg_kw)
+    n = 128 * cfg.hop_length - 1  # 128 frames
+    y = torch.from_numpy(np.stack([fullscale(n, s) for s in range(8)])).to(cuda)
+    ypad = audio.mirror_pad(audio.preemphasis(y, cfg.preemphasis), cfg.n_fft // 2).contiguous()
+    mel, mag = frontend.fused_frontend(ypad, cfg, 128)
     torch.cuda.synchronize()
-    assert gru.launches == before + 1
-    ref = gru.gru_scan_plain(xw, wh, bh, lens, reverse=reverse)
-    torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+    pmel, pmag = frontend.frontend_plain(ypad, cfg, 128)
+    torch.testing.assert_close(mag, pmag, atol=1e-4, rtol=0)
+    torch.testing.assert_close(mel, pmel, atol=1e-4, rtol=0)
 
 
-# every other n_fft the kernel takes: its FFTs are built per log2 n_fft,
-# n_fft = P x L with P = L (even) or P = 2L (odd: 32, 128, 512)
-GL_CONFIGS = {**CONFIGS, **{f"n{n}": dict(n_fft=n, hop_length=n // 4, win_length=n)
-                            for n in (16, 32, 64, 128, 512)}}
+@pytest.mark.parametrize("t", [1, 7, 64, 512])
+@pytest.mark.parametrize("b", [1, 2, 6, 16, 64, 128])
+def test_gru_kernel_matches_plain(cuda, b, t):
+    """Kernel 2 (one cooperative launch a scan) against gru_scan_plain at
+    1e-4, for H = 40, 41 (3H not a multiple of 4: rows staged as floats)
+    and 512, forward, reverse and reverse masked with ragged lengths."""
+    for h in (40, 41, 512):
+        for reverse, masked in ((False, False), (True, False), (True, True)):
+            gen = torch.Generator().manual_seed(b * t + h)
+            xw = torch.randn(b, t, 3 * h, generator=gen).to(cuda)
+            wh = (torch.randn(h, 3 * h, generator=gen) / math.sqrt(h)).to(cuda)
+            bh = (0.1 * torch.randn(3 * h, generator=gen)).to(cuda)
+            lens = torch.randint(1, t + 1, (b,), generator=gen, dtype=torch.int32).to(cuda) if masked else None
+            before = gru.launches
+            out = gru.gru_scan(xw, wh, bh, lens, reverse=reverse)
+            torch.cuda.synchronize()
+            assert gru.launches == before + 1, (h, reverse, masked)
+            ref = gru.gru_scan_plain(xw, wh, bh, lens, reverse=reverse)
+            err = (out - ref).abs().max().item()
+            assert err <= 1e-4, (h, reverse, masked, err)
+
+
+GL_CONFIGS = {**CONFIGS, **FFT_SIZES}
 
 
 @pytest.mark.parametrize("b,t,cfg_name", [(4, 512, "default"), (1, 2500, "default"),
@@ -225,7 +245,14 @@ def test_wrappers_reject_bad_cuda_inputs(cuda):
     with pytest.raises(ValueError):  # n_fft not a power of two: the kernel's FFTs need one
         odd = AudioConfig(n_fft=1000)
         griffin_lim.griffin_lim(torch.rand(1, 20, odd.n_freq, device=cuda), odd, 1)
-    with pytest.raises(ValueError):  # wh rows of a block beyond its shared memory
+    with pytest.raises(ValueError):  # the frontend's FFTs need one too
+        odd = AudioConfig(n_fft=1000)
+        frontend.fused_frontend(torch.rand(1, 30000, device=cuda), odd, 20)
+    with pytest.raises(ValueError):  # kernel 2: a block's columns of wh beyond its shared memory
+        h = 1600
+        gru.gru_scan(torch.rand(1, 2, 3 * h, device=cuda), torch.rand(h, 3 * h, device=cuda),
+                     torch.rand(3 * h, device=cuda))
+    with pytest.raises(ValueError):  # kernel 3: wh rows of a block beyond its shared memory
         h = 1600
         gru.gru_bwd(torch.rand(1, 1, 3 * h, device=cuda), torch.rand(h, 3 * h, device=cuda),
                     torch.rand(3 * h, device=cuda), torch.rand(1, 1, h, device=cuda),

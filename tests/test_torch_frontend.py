@@ -102,3 +102,52 @@ def test_frontend_wrapper_cpu_takes_plain_path():
     assert frontend.launches == 0
     assert torch.equal(mel, pmel) and torch.equal(mag, pmag)
     assert mag.shape == (1, t, cfg.n_freq) and mel.shape == (1, t, cfg.n_mels)
+
+
+# The card configs (tests/test_torch_cuda.py); "hop50": hop and win not
+# multiples of 4.
+KERNEL_CONFIGS = {"default": {}, "small": SMALL,
+                  "hop50": dict(n_fft=256, hop_length=50, win_length=250, n_mels=20)}
+
+
+def _rel(a, b):
+    return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+
+
+@pytest.mark.parametrize("cfg_kw", KERNEL_CONFIGS.values(), ids=KERNEL_CONFIGS.keys())
+def test_frontend_fft_formulation_matches_dft_bases(cfg_kw):
+    """What the kernel computes: frame t is ypad[t*hop : t*hop + n_fft]
+    times the n_fft window (its support at lpad), and its rfft equals the
+    plain version's segs @ ca and segs @ sa (rel-L2 1e-5)."""
+    cfg = AudioConfig(**cfg_kw)
+    n = 40 * cfg.hop_length + 17
+    y = torch.from_numpy(np.stack([_speechlike(n, s) for s in range(2)]))
+    ypad = port_audio.mirror_pad(port_audio.preemphasis(y, cfg.preemphasis), cfg.n_fft // 2)
+    t = port_audio.n_frames_for(n, cfg)
+    ca, sa, _ = (a.double() for a in frontend._constants(cfg, "cpu"))
+    segs = port_audio._fused_segments(ypad, cfg, t).double()
+    window = torch.from_numpy(port_audio._window(cfg)).double()
+    frames = torch.stack([ypad[:, i * cfg.hop_length : i * cfg.hop_length + cfg.n_fft] for i in range(t)], 1)
+    assert frames.shape == (2, t, cfg.n_fft)  # the last frame ends inside ypad
+    spec = torch.fft.rfft(frames.double() * window, n=cfg.n_fft)
+    assert _rel(spec.real, segs @ ca) < 1e-5
+    assert _rel(spec.imag, segs @ sa) < 1e-5
+
+
+@pytest.mark.parametrize("cfg_kw", KERNEL_CONFIGS.values(), ids=KERNEL_CONFIGS.keys())
+def test_frontend_mel_bands_cover_basis(cfg_kw):
+    """The kernel's mel product: each band summed over its nonzero run
+    [lo, hi) of _mel_basis (the host's tables) equals mag @ melT (rel-L2
+    1e-6), and the runs hold every nonzero of the basis."""
+    cfg = AudioConfig(**cfg_kw)
+    basis = port_audio._mel_basis(cfg)
+    bands, weights = frontend.mel_bands(cfg)
+    assert bands.shape == (3, cfg.n_mels) and weights.size == int((bands[1] - bands[0]).sum())
+    rebuilt = np.zeros_like(basis)
+    for m, (lo, hi, off) in enumerate(bands.T):
+        rebuilt[m, lo:hi] = weights[off : off + hi - lo]
+    np.testing.assert_array_equal(rebuilt, basis)
+    mag = torch.from_numpy(np.random.default_rng(0).uniform(0, 3, (2, 30, cfg.n_freq)).astype(np.float32))
+    w = torch.from_numpy(weights)
+    banded = torch.stack([mag[..., lo:hi] @ w[off : off + hi - lo] for lo, hi, off in bands.T], -1)
+    assert _rel(banded, mag @ frontend._constants(cfg, "cpu")[2]) < 1e-6

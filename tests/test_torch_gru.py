@@ -55,3 +55,16 @@ def test_gru_wrapper_cpu_takes_plain_path_and_rejects_masked_forward():
     assert torch.equal(out, gru.gru_scan_plain(xw, wh, bh, reverse=True))
     with pytest.raises(NotImplementedError):
         gru.gru_scan(xw, wh, bh, torch.tensor([5, 2], dtype=torch.int32))
+
+
+def test_gru_plain_masked_reverse_is_padding_invariant():
+    """Ragged rows (B=3, T=7, H=40): each row of a padded masked reverse
+    scan equals an exact-length unmasked reverse scan of that row alone,
+    and its pad steps carry h0 = 0."""
+    xw, wh, bh = (torch.from_numpy(a) for a in _inputs(b=3, t=7, h=40, seed=3))
+    lens = torch.tensor([7, 4, 1], dtype=torch.int32)
+    out = gru.gru_scan_plain(xw, wh, bh, lens, reverse=True)
+    for b, n in enumerate(lens.tolist()):
+        alone = gru.gru_scan_plain(xw[b : b + 1, :n], wh, bh, reverse=True)
+        torch.testing.assert_close(out[b : b + 1, :n], alone, atol=1e-6, rtol=0)
+        assert not out[b, n:].any()

@@ -1,7 +1,8 @@
 // Shared pieces of the port's hand-written Hopper kernels (frontend.cu,
-// gru.cu, gru_bwd.cu, griffin_lim.cu). Each .cu builds into its own shared
-// library with a plain C interface (see ops/build.py); every library
-// exports zs_error_string so the Python binding can render a cudaError_t.
+// gru.cu, gru_bwd.cu, griffin_lim.cu; their register FFTs are in fft.cuh).
+// Each .cu builds into its own shared library with a plain C interface
+// (see ops/build.py); every library exports zs_error_string so the Python
+// binding can render a cudaError_t.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -15,16 +16,23 @@
 
 namespace zs {
 
-// Frames per block of the frontend's windowed-DFT analysis.
-// Consecutive frames overlap (hop < win), so a block's frames are one
-// contiguous span of (kAnalysisFrames - 1) * hop + win samples.
-constexpr int kAnalysisFrames = 32;
-
-// Threads for a loop over F frequency bins: two bins per thread, rounded
-// to whole warps (513 bins -> 288 threads, 89% of the lanes busy).
-inline int bin_threads(int F) {
-  int t = ((F + 1) / 2 + 31) / 32 * 32;
-  return t > 1024 ? 1024 : t;
+// cp.async copies global -> shared memory (sm_80 and later). Each kernel
+// commits its copies in groups and waits for all but the newest N of them.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+// 4 bytes, cached in L1 (data no block of the launch writes)
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_addr(dst)), "l"(src) : "memory");
+}
+// 16 bytes, cached in L2 only (rows other SMs wrote)
+__device__ __forceinline__ void cp_async16_cg(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_addr(dst)), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
 // Dynamic shared memory above the 48 KB default needs an opt-in per kernel.
@@ -63,64 +71,29 @@ __device__ inline void grid_barrier(unsigned* bar, unsigned n_blocks) {
   __syncthreads();
 }
 
-// span[s] = sig[s0 + s] for s in [0, n), zero at and past sig[len].
-__device__ inline void load_span(float* span, const float* __restrict__ sig, long s0, int n,
-                                 long len) {
-  for (int s = threadIdx.x; s < n; s += blockDim.x) {
-    const long i = s0 + s;
-    span[s] = i < len ? sig[i] : 0.f;
-  }
+// A cheaper barrier for a loop of steps: a monotone counter that starts at
+// 0 (the host zeroes it before the launch) and is never reset. At the end
+// of step s every block arrives (one atomic add with release semantics)
+// and, after any work that does not depend on the other blocks, waits
+// until the counter reaches n_blocks (s + 1) (loads with acquire
+// semantics). The bar.sync before thread 0's release orders all the
+// block's writes before its arrival; thread 0's acquire, then the bar.sync
+// after it, order every other block's writes before this block's reads,
+// which go through L2 (__ldcg, cp.async.cg). Every thread of every block
+// must call both, in every step.
+__device__ inline void step_arrive(unsigned* bar) {
+  __syncthreads();
+  if (threadIdx.x == 0) asm volatile("red.release.gpu.global.add.u32 [%0], 1;" ::"l"(bar) : "memory");
 }
 
-// Windowed real DFT of kAnalysisFrames consecutive frames at bin f. Frame i
-// is span[i*hop, i*hop + win); ca/sa are the [win, F] cos/-sin bases with
-// the analysis window folded in (dsp/audio.py _fused_bases). Every thread of
-// a warp reads the same span elements (a shared-memory broadcast) and its own
-// basis column (coalesced, L2-resident). When hop and win are multiples of 4
-// (every config the repo ships) the span is read as float4, four taps per
-// load, so each shared-memory load feeds eight FMAs; `span` must then be
-// 16-byte aligned.
-__device__ inline void analyze_bin(const float* span, const float* __restrict__ ca,
-                                   const float* __restrict__ sa, int f, int F, int win, int hop,
-                                   float (&re)[kAnalysisFrames], float (&im)[kAnalysisFrames]) {
-#pragma unroll
-  for (int i = 0; i < kAnalysisFrames; ++i) {
-    re[i] = 0.f;
-    im[i] = 0.f;
+__device__ inline void step_wait(const unsigned* bar, unsigned target) {
+  if (threadIdx.x == 0) {
+    unsigned v;
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(bar) : "memory");
+    } while (v < target);
   }
-  if ((hop & 3) == 0 && (win & 3) == 0) {
-    for (int k = 0; k < win; k += 4) {
-      float c[4], s[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        c[j] = __ldg(ca + static_cast<long>(k + j) * F + f);
-        s[j] = __ldg(sa + static_cast<long>(k + j) * F + f);
-      }
-#pragma unroll
-      for (int i = 0; i < kAnalysisFrames; ++i) {
-        const float4 x = *reinterpret_cast<const float4*>(span + i * hop + k);
-        re[i] = fmaf(x.x, c[0], re[i]);
-        im[i] = fmaf(x.x, s[0], im[i]);
-        re[i] = fmaf(x.y, c[1], re[i]);
-        im[i] = fmaf(x.y, s[1], im[i]);
-        re[i] = fmaf(x.z, c[2], re[i]);
-        im[i] = fmaf(x.z, s[2], im[i]);
-        re[i] = fmaf(x.w, c[3], re[i]);
-        im[i] = fmaf(x.w, s[3], im[i]);
-      }
-    }
-    return;
-  }
-  for (int k = 0; k < win; ++k) {
-    const float c = __ldg(ca + static_cast<long>(k) * F + f);
-    const float s = __ldg(sa + static_cast<long>(k) * F + f);
-#pragma unroll
-    for (int i = 0; i < kAnalysisFrames; ++i) {
-      const float x = span[i * hop + k];
-      re[i] = fmaf(x, c, re[i]);
-      im[i] = fmaf(x, s, im[i]);
-    }
-  }
+  __syncthreads();
 }
 
 }  // namespace zs

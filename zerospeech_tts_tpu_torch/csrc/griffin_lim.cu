@@ -51,6 +51,7 @@
 // W_nfft^(k1 l) in shared memory, W_32^k in constant memory (read as
 // instruction operands by the unrolled register FFTs).
 #include "common.cuh"
+#include "fft.cuh"
 
 namespace {
 
@@ -58,74 +59,13 @@ constexpr int NWARP = 8;
 constexpr int THREADS = 32 * NWARP;
 enum Mode { kInit = 0, kIter = 1, kFinal = 2 };
 
-__constant__ float2 c_w32[16];  // exp(-2 pi i k / 32), k < 16
-
-__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
-  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
-}
-__device__ __forceinline__ float2 cmulc(float2 a, float2 b) {  // a conj(b)
-  return make_float2(a.x * b.x + a.y * b.y, a.y * b.x - a.x * b.y);
-}
-__device__ __forceinline__ float2 cadd(float2 a, float2 b) { return make_float2(a.x + b.x, a.y + b.y); }
-__device__ __forceinline__ float2 csub(float2 a, float2 b) { return make_float2(a.x - b.x, a.y - b.y); }
-
-__host__ __device__ constexpr int brev(int i, int lg) {
-  int r = 0;
-  for (int b = 0; b < lg; ++b) r |= ((i >> b) & 1) << (lg - 1 - b);
-  return r;
-}
-
-// One radix-2 decimation-in-frequency stage of span H on x[0, Q), then the
-// stages of span H / 2 .. 1. Twiddles W_Q^k = c_w32[k 32 / Q] (forward) or
-// their conjugates (INV); every index is a compile-time constant, so x
-// stays in registers and each twiddle is an instruction operand.
-template <int Q, int H, bool INV>
-__device__ __forceinline__ void dif_stage(float2 (&x)[Q]) {
-  constexpr int S = Q / (2 * H);
-#pragma unroll
-  for (int blk = 0; blk < Q; blk += 2 * H) {
-#pragma unroll
-    for (int j = 0; j < H; ++j) {
-      const float2 a = x[blk + j], b = x[blk + j + H];
-      const float2 d = csub(a, b);
-      const int k = j * S * (32 / Q);
-      x[blk + j] = cadd(a, b);
-      if (k == 0) {
-        x[blk + j + H] = d;
-      } else if (k == 8) {  // W_32^8 = -i
-        x[blk + j + H] = INV ? make_float2(-d.y, d.x) : make_float2(d.y, -d.x);
-      } else {
-        x[blk + j + H] = INV ? cmulc(d, c_w32[k]) : cmul(d, c_w32[k]);
-      }
-    }
-  }
-  if constexpr (H > 1) dif_stage<Q, H / 2, INV>(x);
-}
-
-// In-place DFT of x[0, Q) (Q a power of two, 2 to 32) in registers:
-// natural order in, bit-reversed order out.
-template <int Q, bool INV>
-__device__ __forceinline__ void dif(float2 (&x)[Q]) {
-  dif_stage<Q, Q / 2, INV>(x);
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
-                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
-               "l"(src));
-}
-
 template <int LG>
-struct Geo {
-  static constexpr int N = 1 << LG, LGL = LG / 2, L = 1 << LGL, LGP = LG - LGL, P = N / L;
-  static constexpr int M = P / L;            // values of k1 a lane holds after the transpose
-  static constexpr int G = 32 / L;           // units a warp
-  static constexpr int UNITS = NWARP * G;    // units a block: 2 UNITS frames
-  static constexpr int F = N / 2 + 1;        // bins of a frame
-  static constexpr int STRIDE = P * (L + 1); // float2 of a unit's buffer (>= N)
-  static constexpr int MAGS = 2 * F;         // floats of a unit's magnitudes
+struct Geo : Fft4<LG> {
+  using Base = Fft4<LG>;
+  static constexpr int UNITS = NWARP * Base::G;  // units a block: 2 UNITS frames
+  static constexpr int MAGS = 2 * Base::F;    // floats of a unit's magnitudes
   static size_t smem(int win) {
-    return static_cast<size_t>(STRIDE + UNITS * STRIDE) * sizeof(float2) +
+    return static_cast<size_t>(Base::STRIDE + UNITS * Base::STRIDE) * sizeof(float2) +
            static_cast<size_t>(UNITS * MAGS + win) * sizeof(float);
   }
 };
@@ -160,19 +100,19 @@ gl_iter_kernel(const float* __restrict__ mag, const float* __restrict__ win_w,
   const float* mag_a = mag + (static_cast<long>(b) * T + ta) * F;
   for (int i = jl; i < 2 * F; i += L) {
     if (i < F ? va : vb) {
-      cp_async4(ms + i, mag_a + i);
+      zs::cp_async4(ms + i, mag_a + i);
     } else {
       ms[i] = 0.f;
     }
   }
-  asm volatile("cp.async.commit_group;" ::: "memory");
+  zs::cp_async_commit();
   for (int i = tid; i < STRIDE; i += THREADS) tw_s[i] = tw[i];
   for (int i = tid; i < win; i += THREADS) win_s[i] = win_w[i];
   __syncthreads();
 
   float2 x[M][L];  // lane jl, after the forward FFT: bin k1 + P brev(r2) in x[i][r2], k1 = jl + i L
   if (mode == kInit) {
-    asm volatile("cp.async.wait_all;" ::: "memory");
+    zs::cp_async_wait<0>();
     __syncwarp();
 #pragma unroll
     for (int i = 0; i < M; ++i)
@@ -216,7 +156,7 @@ gl_iter_kernel(const float* __restrict__ mag, const float* __restrict__ win_w,
     for (int i = 0; i < M; ++i)
 #pragma unroll
       for (int r2 = 0; r2 < L; ++r2) z[jl + i * L + P * brev(r2, Gm::LGL)] = x[i][r2];
-    asm volatile("cp.async.wait_all;" ::: "memory");
+    zs::cp_async_wait<0>();
     __syncwarp();
 #pragma unroll
     for (int i = 0; i < M; ++i)
@@ -335,9 +275,7 @@ ZS_EXPORT int zs_griffin_lim(const float* mag, const float* win_w, const float* 
                              int n_iters, float alpha, void* stream) {
   const float2* tw2 = reinterpret_cast<const float2*>(tw);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaMemcpyToSymbolAsync(c_w32, w32, sizeof(float2) * 16, 0,
-                                          cudaMemcpyDeviceToDevice, st);
-  if (e != cudaSuccess) return e;
+  if (cudaError_t e = set_w32(w32, st)) return e;
 #define ZS_GL_CASE(LGV) \
   case LGV:             \
     return run<LGV>(mag, win_w, tw2, wss_inv, u, va, vb, out, B, T, win, hop, n_iters, alpha, st);

@@ -1,4 +1,5 @@
-// Kernel 2: GRU recurrence, forward and (length-masked) reverse.
+// Kernel 2: GRU recurrence, forward and (length-masked) reverse, in ONE
+// cooperative launch a scan.
 //
 // Replaces zerospeech_tts_tpu/ops/pallas_gru.py::pallas_gru_scan. Given the
 // hoisted input projections xw = x Wi + bi [B, T, 3H] (a plain matmul
@@ -10,111 +11,376 @@
 // first real step sees h0 = 0 exactly as an exact-length run does.
 //
 // What bounds it on an H100: the serial chain of T dependent steps, not
-// arithmetic. One decoder step at B=16, H=512 is 12.6 M FMAs (~1 us of one
-// SM's FP32 rate spread over 64 blocks) and reads wh (3 MB f32, L2-resident
-// after the first step), so launch latency and the L2 read of wh set the
-// per-step time.
+// arithmetic. A step is B x 3H x H FMAs (0.4 us of the card's f32 rate at
+// B=16, H=512; the conversion path runs 1-6 rows) and needs every column
+// of the previous step's h, so the time of a step is the length of its
+// chain of dependent memory operations.
 //
-// Design: the simplest correct form, one launch per time step, all T
-// launches issued from one C call onto the caller's stream. A block owns 16
-// hidden columns j (48 columns of wh across the three gates) and 8 batch
-// rows: 256 threads split the H-long dot products into 16 strided k-slices,
-// each wh element loaded once per block and reused across the 8 rows held
-// in shared memory, then one thread per (row, column) sums the 16 partials,
-// applies the gates and the length mask, and writes ys[b, t, j]. The
-// previous state is read back from ys[:, t -/+ 1] (h0 = 0 at the first
-// step), so the kernel needs no state buffer. A persistent single-launch
-// version with wh spread over the SMs and a grid-wide barrier is later work.
+// Design: a cooperative launch (every block co-resident, at most one per
+// SM) runs all T steps. Blocks form NK column groups x NB batch groups
+// (make_plan); block (g, q) owns kc hidden columns j and with them the
+// three gate columns {j, H+j, 2H+j} of wh, which stay on chip for the whole
+// scan (H x 3kc f32: 10 to 104 KB at H=512, kc = 5 to 17): in shared
+// memory, and in registers too when a thread's share fits in 8 float4 (so
+// a step reads only h from shared memory), beside bh and its rows'
+// lengths. A batch
+// row's recurrence needs only that row's h, so only the NK blocks of a
+// batch group wait for each other, on a counter of their own
+// (zs::step_arrive / step_wait: one atomic a block a step). Step
+// t, for the block's nb rows (in chunks of cb when they do not fit):
+//   1. stage the rows of h_{t-1} from ys (written by the group's blocks
+//      last step) into shared memory with cp.async.cg (through L2, every
+//      load in flight at once); with the first chunk, start copying the
+//      next step's xw for its rows and columns, which does not depend on
+//      the state and arrives while the step runs (double-buffered);
+//   2. hw = h_{t-1} wh for the 3kc columns: thread (c, ks) sums every
+//      KS-th float4 group of the H terms for column c over 8 rows at a
+//      time (float4 reads of h, broadcast across the columns), then a
+//      thread an output adds the KS k-slices in a fixed order;
+//   3. the gates, and h_t of its columns straight into ys[:, t], which is
+//      the output anyway;
+//   4. arrive at the group's counter (a release add) and wait for it (an
+//      acquire spin).
+// A step's chain is thus one barrier and one L2 round trip for h, not a
+// launch. Any B runs: rows a group holds are staged in chunks, and a batch
+// too large for the shared memory runs as slices, a launch each. Only H is
+// bounded: a block's columns of wh (ceil(H / SMs) x 3H f32) must fit in
+// its shared memory with room for one staged row, up to H of about 1,500
+// on an H100; beyond that zs_gru_scan returns kNoSpread.
+#include <algorithm>
+#include <cmath>
+
 #include "common.cuh"
 
 namespace {
 
-constexpr int JT = 16;  // hidden columns per block
-constexpr int KS = 16;  // k-slices of the recurrent dot product
-constexpr int BB = 8;   // batch rows per block
-constexpr int THREADS = JT * KS;
+constexpr int THREADS = 512;
+constexpr int RR = 8;           // batch rows a thread accumulates at once
+constexpr int WQ = 8;           // float4 groups of wh a thread holds in registers (when they fit)
+constexpr int BAR_STRIDE = 32;  // unsigned words between batch groups' counters (128 bytes)
+
+// kc hidden columns and nb batch rows a block; NK x NB blocks (blockIdx.x
+// = group * NK + column group); a block's rows of h staged cb at a time.
+struct Plan {
+  int kc, NK, nb, NB, cb;
+};
+
+int pad4(int h) { return (h + 3) / 4 * 4; }
+
+// Whether a thread's share of the block's columns of wh (its column, every
+// KS-th float4 group of the H terms) fits in WQ float4 of registers.
+bool wh_in_registers(const Plan& p, int H) {
+  const int ks = THREADS / (3 * p.kc), g4 = pad4(H) / 4;
+  return (g4 + ks - 1) / ks <= WQ;
+}
+
+size_t smem_bytes(const Plan& p, int H) {
+  const size_t C = 3 * p.kc, H4 = pad4(H), KS = THREADS / C;
+  return (H4 * C                  // ws: the block's columns of wh
+          + p.cb * H4             // hs: a chunk of its rows of h_{t-1}
+          + KS * p.cb * C         // part: k-slice partial sums
+          + p.cb * C              // hws: their totals
+          + 2 * p.nb * C          // xs: xw for its rows and columns, this step and the next
+          + C) * sizeof(float)    // bhs
+         + p.nb * sizeof(int);    // lens
+}
+
+// The spread for B rows on a card of n_sm SMs with optin bytes of shared
+// memory a block: for each column-group count NK, as many batch groups as
+// the SMs left over allow, and the largest chunk of rows that fits beside
+// the block's columns of wh. Of these, the least estimated step time in
+// microseconds: a thread's product loop (its float4 groups of wh times
+// its row blocks, each reading a float4 of h a row, and four scalars of wh
+// when they are not in registers: shared-memory bound), staging the
+// block's rows of h, a round of loads and syncs a chunk, and a term a
+// float4 group. The weights were fitted by least squares (non-negative) to
+// step times on an H100 at H=512 with the column-group count forced
+// (tools/gru_spread_sweep.py), B = 1 to 128; PERF.md keeps that table.
+// False when no spread fits.
+bool make_plan(Plan& best, int B, int H, int n_sm, size_t optin) {
+  double best_cost = -1.0;
+  for (int nk = 1; nk <= H && nk <= n_sm; ++nk) {
+    Plan p;
+    p.kc = (H + nk - 1) / nk;
+    p.NK = (H + p.kc - 1) / p.kc;
+    if (p.NK != nk || 3 * p.kc > THREADS) continue;  // the same spread as another nk, or too wide
+    const int nbg = n_sm / p.NK < B ? n_sm / p.NK : B;
+    p.nb = (B + nbg - 1) / nbg;
+    p.NB = (B + p.nb - 1) / p.nb;
+    p.cb = p.nb;
+    while (p.cb > 0 && smem_bytes(p, H) > optin) --p.cb;
+    if (p.cb == 0) continue;
+    const int chunks = (p.nb + p.cb - 1) / p.cb;
+    p.cb = (p.nb + chunks - 1) / chunks;  // even chunks, none larger than what fits
+    const double ks = THREADS / (3 * p.kc), q4 = std::ceil(pad4(H) / 4 / ks);
+    const double row_blocks = (p.nb + RR - 1) / RR, rows = p.nb < RR ? p.nb : RR;
+    const double cost = 0.0086 * q4 * row_blocks * (4 * rows + (wh_in_registers(p, H) ? 0 : 4))
+                        + 0.185 * p.nb * H / 512 + 2.79 * chunks + 0.061 * q4;
+    if (best_cost < 0 || cost < best_cost) {
+      best = p;
+      best_cost = cost;
+    }
+  }
+  return best_cost >= 0;
+}
 
 __device__ inline float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
 
-__global__ void gru_step_kernel(const float* __restrict__ xw, const float* __restrict__ wh,
-                                const float* __restrict__ bh, const int* __restrict__ lengths,
-                                float* __restrict__ ys, int B, int T, int H, int t, int t_prev) {
-  extern __shared__ float smem[];
-  float* hs = smem;             // [BB][H]: h_{t_prev} of this block's rows
-  float* part = smem + BB * H;  // [KS][3][BB][JT]: partial dot products
-  const int tid = threadIdx.x, jj = tid % JT, ks = tid / JT;
-  const int j0 = blockIdx.x * JT, b0 = blockIdx.y * BB, H3 = 3 * H;
-
-  for (int idx = tid; idx < BB * H; idx += THREADS) {
-    const int bb = idx / H, k = idx % H, b = b0 + bb;
-    hs[idx] = (t_prev >= 0 && b < B) ? ys[(static_cast<long>(b) * T + t_prev) * H + k] : 0.f;
-  }
-  __syncthreads();
-
-  float acc[3][BB];
+// hs[r][k] = src[r T H + k] for r < nr, k < H, through L2, eight loads in
+// flight a thread (rows that are not 16-byte aligned when H % 4 != 0).
+__device__ inline void stage_rows_scalar(float* hs, const float* src, int nr, int H, int H4, int T) {
+  constexpr int U = 8;
+  for (int i0 = threadIdx.x; i0 < nr * H; i0 += U * blockDim.x) {
+    float v[U];
 #pragma unroll
-  for (int g = 0; g < 3; ++g)
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + u * blockDim.x, r = i / H;
+      v[u] = i < nr * H ? __ldcg(src + static_cast<long>(r) * T * H + (i - r * H)) : 0.f;
+    }
 #pragma unroll
-    for (int bb = 0; bb < BB; ++bb) acc[g][bb] = 0.f;
-  const int j = j0 + jj;
-  if (j < H) {
-    for (int k = ks; k < H; k += KS) {
-      const float* w = wh + static_cast<long>(k) * H3 + j;
-      const float wr = __ldg(w), wz = __ldg(w + H), wn = __ldg(w + 2 * H);
-#pragma unroll
-      for (int bb = 0; bb < BB; ++bb) {
-        const float hv = hs[bb * H + k];
-        acc[0][bb] = fmaf(hv, wr, acc[0][bb]);
-        acc[1][bb] = fmaf(hv, wz, acc[1][bb]);
-        acc[2][bb] = fmaf(hv, wn, acc[2][bb]);
-      }
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + u * blockDim.x, r = i / H;
+      if (i < nr * H) hs[r * H4 + (i - r * H)] = v[u];
     }
   }
+}
+
+// acc[r] += hs[r0 + r][4 q4 .. 4 q4 + 3] . w for the rows r0 + r < nr.
+__device__ __forceinline__ void accumulate(float (&acc)[RR], const float* hs, int H4, int r0, int nr,
+                                           int q4, float4 w) {
 #pragma unroll
-  for (int g = 0; g < 3; ++g)
-#pragma unroll
-    for (int bb = 0; bb < BB; ++bb) part[((ks * 3 + g) * BB + bb) * JT + jj] = acc[g][bb];
+  for (int r = 0; r < RR; ++r) {
+    if (r0 + r < nr) {
+      const float4 hv = reinterpret_cast<const float4*>(hs + (r0 + r) * H4)[q4];
+      acc[r] = fmaf(hv.w, w.w, fmaf(hv.z, w.z, fmaf(hv.y, w.y, fmaf(hv.x, w.x, acc[r]))));
+    }
+  }
+}
+
+template <bool WREG>
+__global__ void __launch_bounds__(THREADS, 1)
+gru_scan_kernel(const float* __restrict__ xw, const float* __restrict__ wh,
+                const float* __restrict__ bh, const int* __restrict__ lengths, float* ys,
+                unsigned* bar, int B, int T, int H, Plan pl, int rev) {
+  extern __shared__ __align__(16) float smem[];
+  const int kc = pl.kc, C = 3 * kc, H4 = (H + 3) & ~3, KS = THREADS / C, G4 = H4 / 4;
+  const int H3 = 3 * H, tid = threadIdx.x;
+  const int g = blockIdx.x / pl.NK, q = blockIdx.x % pl.NK;
+  const int k0 = q * kc, nk = min(kc, H - k0), b0 = g * pl.nb, nb = min(pl.nb, B - b0);
+  float* ws = smem;                    // [H4][C]: column gate * kc + jj is wh[:, gate H + k0 + jj]
+  float* hs = ws + H4 * C;             // [cb][H4]
+  float* part = hs + pl.cb * H4;       // [KS][cb][C]
+  float* hws = part + KS * pl.cb * C;  // [cb][C]
+  float* xs = hws + pl.cb * C;         // [2][nb][C]: this step's and the next step's xw
+  float* bhs = xs + 2 * pl.nb * C;     // [C]
+  int* lens = reinterpret_cast<int*>(bhs + C);  // [nb]
+  unsigned* gbar = bar + BAR_STRIDE * g;
+
+  // xs[buf][r][gate kc + jj] = xw[b0 + r, t, gate H + k0 + jj], copied
+  // asynchronously (0 past the last column)
+  auto prefetch_x = [&](int buf, int t) {
+    float* dst = xs + buf * nb * C;
+    for (int i = tid; i < nb * C; i += THREADS) {
+      const int r = i / C, c = i % C, jj = c % kc;
+      if (jj < nk) {
+        zs::cp_async4(dst + i, xw + (static_cast<long>(b0 + r) * T + t) * H3 + (c / kc) * H + k0 + jj);
+      } else {
+        dst[i] = 0.f;
+      }
+    }
+  };
+  // the block's columns of wh and bh, and the first step's xw, all copied
+  // asynchronously (every load in flight at once)
+  for (int i = tid; i < H4 * C; i += THREADS) {
+    const int k = i / C, c = i % C, jj = c % kc;
+    if (k < H && jj < nk) {
+      zs::cp_async4(ws + i, wh + static_cast<long>(k) * H3 + (c / kc) * H + k0 + jj);
+    } else {
+      ws[i] = 0.f;
+    }
+  }
+  for (int c = tid; c < C; c += THREADS) {
+    if (c % kc < nk) {
+      zs::cp_async4(bhs + c, bh + (c / kc) * H + k0 + c % kc);
+    } else {
+      bhs[c] = 0.f;
+    }
+  }
+  prefetch_x(0, rev ? T - 1 : 0);
+  zs::cp_async_commit();
+  for (int r = tid; r < nb; r += THREADS) lens[r] = lengths ? lengths[b0 + r] : T;
+  for (int i = tid; i < pl.cb * H4; i += THREADS) hs[i] = 0.f;  // h0 = 0, and the padding past H
+  zs::cp_async_wait<0>();
   __syncthreads();
 
-  if (tid >= BB * JT) return;
-  const int bb = tid / JT, jo = tid % JT, b = b0 + bb, jc = j0 + jo;
-  if (b >= B || jc >= H) return;
-  float hw[3];
+  const int c = tid % C, ks = tid / C;  // this thread's column and k-slice in the product
+  float4 wr[WREG ? WQ : 1];             // its float4 groups of ws, when they fit
+  if constexpr (WREG) {
 #pragma unroll
-  for (int g = 0; g < 3; ++g) {
-    float s = 0.f;
-    for (int q = 0; q < KS; ++q) s += part[((q * 3 + g) * BB + bb) * JT + jo];
-    hw[g] = s + bh[g * H + jc];
+    for (int i = 0; i < WQ; ++i) {
+      const int q4 = ks + i * KS;
+      const bool in = ks < KS && q4 < G4;
+      const float* wp = ws + 4 * q4 * C + c;
+      wr[i] = in ? make_float4(wp[0], wp[C], wp[2 * C], wp[3 * C]) : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
   }
-  const float* x = xw + (static_cast<long>(b) * T + t) * H3;
-  const float r = sigmoid(x[jc] + hw[0]);
-  const float z = sigmoid(x[H + jc] + hw[1]);
-  const float n = tanhf(x[2 * H + jc] + r * hw[2]);
-  const float hp = hs[bb * H + jc];
-  float hn = (1.f - z) * n + z * hp;
-  if (lengths != nullptr && t >= lengths[b]) hn = hp;
-  ys[(static_cast<long>(b) * T + t) * H + jc] = hn;
+  for (int s = 0; s < T; ++s) {
+    const int t = rev ? T - 1 - s : s, tp = rev ? t + 1 : t - 1;
+    for (int c0 = 0; c0 < nb; c0 += pl.cb) {  // the same chunks in every thread
+      const int nr = min(pl.cb, nb - c0);
+      // 1. the chunk's rows of h_{t-1} (at s = 0 still the zeros above: one
+      // chunk), and with the first chunk the next step's xw (which does not
+      // depend on the state: it arrives while the step runs)
+      if (s > 0) {
+        const float* src = ys + (static_cast<long>(b0 + c0) * T + tp) * H;
+        if ((H & 3) == 0) {
+          const int w = H / 4;
+          for (int i = tid; i < nr * w; i += THREADS) {
+            const int r = i / w, kq = i - r * w;
+            zs::cp_async16_cg(hs + r * H4 + 4 * kq, src + static_cast<long>(r) * T * H + 4 * kq);
+          }
+        } else {
+          stage_rows_scalar(hs, src, nr, H, H4, T);
+        }
+      }
+      zs::cp_async_commit();
+      if (c0 == 0) {
+        if (s + 1 < T) prefetch_x((s + 1) & 1, rev ? t - 1 : t + 1);
+        zs::cp_async_commit();
+        zs::cp_async_wait<1>();  // all but the prefetch
+      } else {
+        zs::cp_async_wait<0>();
+      }
+      __syncthreads();
+      // 2. partial sums of h_{t-1} wh over this thread's k-slice, RR rows at a time
+      if (ks < KS) {
+        for (int r0 = 0; r0 < nr; r0 += RR) {
+          float acc[RR];
+#pragma unroll
+          for (int r = 0; r < RR; ++r) acc[r] = 0.f;
+          if constexpr (WREG) {
+#pragma unroll
+            for (int i = 0; i < WQ; ++i)
+              if (ks + i * KS < G4) accumulate(acc, hs, H4, r0, nr, ks + i * KS, wr[i]);
+          } else {
+            for (int q4 = ks; q4 < G4; q4 += KS) {
+              const float* wp = ws + 4 * q4 * C + c;
+              accumulate(acc, hs, H4, r0, nr, q4, make_float4(wp[0], wp[C], wp[2 * C], wp[3 * C]));
+            }
+          }
+#pragma unroll
+          for (int r = 0; r < RR; ++r)
+            if (r0 + r < nr) part[(ks * pl.cb + r0 + r) * C + c] = acc[r];
+        }
+      }
+      __syncthreads();
+      // ... their totals over the k-slices, a thread an output, in a fixed order
+      for (int o = tid; o < nr * C; o += THREADS) {
+        float v = 0.f;
+#pragma unroll 8
+        for (int k = 0; k < KS; ++k) v += part[k * pl.cb * C + o];
+        hws[o] = v;
+      }
+      __syncthreads();
+      // 3. the gates; h_t of the block's columns into ys
+      for (int i = tid; i < nr * kc; i += THREADS) {
+        const int r = i / kc, jj = i - r * kc, rb = c0 + r;
+        if (jj >= nk) continue;
+        const float* x = xs + ((s & 1) * nb + rb) * C;
+        const float* hw = hws + r * C;
+        const float rg = sigmoid(x[jj] + hw[jj] + bhs[jj]);
+        const float zg = sigmoid(x[kc + jj] + hw[kc + jj] + bhs[kc + jj]);
+        const float ng = tanhf(x[2 * kc + jj] + rg * (hw[2 * kc + jj] + bhs[2 * kc + jj]));
+        const float hp = hs[r * H4 + k0 + jj];
+        const float hn = t < lens[rb] ? (1.f - zg) * ng + zg * hp : hp;
+        ys[(static_cast<long>(b0 + rb) * T + t) * H + k0 + jj] = hn;
+      }
+      if (c0 + pl.cb < nb) __syncthreads();  // hs, part and hws are refilled by the next chunk
+    }
+    if (s == T - 1) break;
+    // 4. arrive and wait for the group
+    zs::step_arrive(gbar);
+    zs::step_wait(gbar, static_cast<unsigned>(pl.NK) * (s + 1));
+  }
+}
+
+cudaError_t card(int* n_sm, int* optin) {
+  int dev;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (!e) e = cudaDeviceGetAttribute(n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (!e) e = cudaDeviceGetAttribute(optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return e;
+}
+
+// The rows a launch takes (all B when they fit, else the largest half,
+// quarter, ... that does) and their spread; false when not even one row
+// fits.
+bool slice_plan(Plan& p, int& rows, int B, int H, int n_sm, size_t optin) {
+  for (rows = B; rows > 1; rows = (rows + 1) / 2)
+    if (make_plan(p, rows, H, n_sm, optin)) return true;
+  return make_plan(p, rows, H, n_sm, optin);
 }
 
 }  // namespace
 
 ZS_DEFINE_ERROR_STRING
 
-// xw [B, T, 3H], wh [H, 3H], bh [3H], lengths [B] int32 or null -> ys [B, T, H].
-// reverse != 0 scans t = T-1 .. 0 (outputs stay in original time order).
+// Returned by zs_gru_scan when no spread of wh fits (the wrapper raises
+// ValueError); every other non-zero return is a CUDA error.
+constexpr int kNoSpread = -1;
+
+// The spread zs_gru_scan picks for B rows on the current device (plan[0..7]
+// = kc, NK, nb, NB, cb, a block's shared memory in bytes, rows a launch,
+// 1 when wh sits in registers; all 0 when none fits), for diagnostics.
+// Returns a CUDA error.
+ZS_EXPORT int zs_gru_scan_plan(int* plan, int B, int H) {
+  int n_sm, optin;
+  if (cudaError_t e = card(&n_sm, &optin)) return e;
+  Plan p{};
+  int rows = 0;
+  const bool ok = B > 0 && slice_plan(p, rows, B, H, n_sm, static_cast<size_t>(optin));
+  const int v[8] = {p.kc, p.NK, p.nb, p.NB, p.cb, ok ? static_cast<int>(smem_bytes(p, H)) : 0, rows,
+                    ok && wh_in_registers(p, H)};
+  for (int i = 0; i < 8; ++i) plan[i] = ok ? v[i] : 0;
+  return cudaSuccess;
+}
+
+// xw [B, T, 3H], wh [H, 3H], bh [3H], lengths [B] int32 or null -> ys
+// [B, T, H]. reverse != 0 scans t = T-1 .. 0 (outputs stay in original
+// time order). bar: scratch of 32 x the SM count unsigned words (the batch
+// groups' counters). *n_launches (host memory) receives the number of
+// cooperative launches made (one unless B is split into slices). Returns
+// kNoSpread or a CUDA error.
 ZS_EXPORT int zs_gru_scan(const float* xw, const float* wh, const float* bh, const int* lengths,
-                          float* ys, int B, int T, int H, int reverse, void* stream) {
-  const size_t smem = static_cast<size_t>(BB * H + KS * 3 * BB * JT) * sizeof(float);
-  cudaError_t e = zs::allow_smem(gru_step_kernel, smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((H + JT - 1) / JT, (B + BB - 1) / BB);
+                          float* ys, unsigned* bar, int* n_launches, int B, int T, int H,
+                          int reverse, void* stream) {
+  *n_launches = 0;
+  if (B == 0 || T == 0) return cudaSuccess;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  for (int s = 0; s < T; ++s) {
-    const int t = reverse ? T - 1 - s : s;
-    const int t_prev = s == 0 ? -1 : (reverse ? t + 1 : t - 1);
-    gru_step_kernel<<<grid, THREADS, smem, st>>>(xw, wh, bh, lengths, ys, B, T, H, t, t_prev);
-    e = cudaGetLastError();
+  int n_sm, optin;
+  cudaError_t e = card(&n_sm, &optin);
+  if (e != cudaSuccess) return e;
+  Plan pl;
+  int rows;
+  if (!slice_plan(pl, rows, B, H, n_sm, static_cast<size_t>(optin))) return kNoSpread;
+  for (int r0 = 0; r0 < B; r0 += rows) {
+    int nrow = B - r0 < rows ? B - r0 : rows;
+    Plan p = pl;
+    if (nrow != rows && !make_plan(p, nrow, H, n_sm, static_cast<size_t>(optin))) return kNoSpread;
+    const size_t smem = smem_bytes(p, H);
+    const void* kernel = wh_in_registers(p, H) ? reinterpret_cast<const void*>(gru_scan_kernel<true>)
+                                               : reinterpret_cast<const void*>(gru_scan_kernel<false>);
+    if ((e = wh_in_registers(p, H) ? zs::allow_smem(gru_scan_kernel<true>, smem)
+                                   : zs::allow_smem(gru_scan_kernel<false>, smem)))
+      return e;
+    if ((e = cudaMemsetAsync(bar, 0, BAR_STRIDE * p.NB * sizeof(unsigned), st))) return e;
+    const float* x = xw + static_cast<long>(r0) * T * 3 * H;
+    const int* len = lengths ? lengths + r0 : nullptr;
+    float* y = ys + static_cast<long>(r0) * T * H;
+    void* args[] = {&x, &wh, &bh, &len, &y, &bar, &nrow, &T, &H, &p, &reverse};
+    e = cudaLaunchCooperativeKernel(kernel, dim3(p.NK * p.NB), dim3(THREADS), args, smem, st);
     if (e != cudaSuccess) return e;
+    ++*n_launches;
   }
   return cudaSuccess;
 }

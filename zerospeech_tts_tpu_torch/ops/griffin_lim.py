@@ -60,16 +60,23 @@ def _fft_tables(cfg: AudioConfig, device: str):
     return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in (win, tw, w32))
 
 
+def fft_lg(cfg: AudioConfig, kernel: str) -> int:
+    """log2 n_fft for a kernel built on csrc/fft.cuh (kernels 1 and 4),
+    whose register FFTs take a power of two from 16 to 1024 points."""
+    n = cfg.n_fft
+    if n & (n - 1) or not 16 <= n <= 1024:
+        raise ValueError(f"{kernel}: n_fft={n} is not a power of two from 16 to 1024")
+    return n.bit_length() - 1
+
+
 def _kernel_limits(cfg: AudioConfig) -> int:
     """log2 n_fft for the kernel (csrc/griffin_lim.cu), which runs
     power-of-two FFTs of 16 to 1024 points in registers and owns at least
     17 - win/hop output rows a block."""
-    n = cfg.n_fft
-    if n & (n - 1) or not 16 <= n <= 1024:
-        raise ValueError(f"griffin-lim kernel: n_fft={n} is not a power of two from 16 to 1024")
+    lg = fft_lg(cfg, "griffin-lim kernel")
     if cfg.win_length // cfg.hop_length > 16:
         raise ValueError(f"griffin-lim kernel: win/hop = {cfg.win_length // cfg.hop_length} > 16")
-    return n.bit_length() - 1
+    return lg
 
 
 @functools.lru_cache(maxsize=32)

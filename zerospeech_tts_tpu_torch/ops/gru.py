@@ -29,11 +29,13 @@ its first step) and r, z, n recomputed from it:
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from zerospeech_tts_tpu_torch.ops import build
 
-launches = 0  # kernel launches through gru_scan (one per whole recurrence)
+launches = 0  # kernel-2 launches through gru_scan (one cooperative launch per scan)
 bwd_launches = 0  # kernel-3 launches through gru_bwd (one per whole backward pass)
 
 
@@ -72,9 +74,33 @@ def gru_scan_plain(xw, wh, bh, lengths=None, *, reverse: bool = False):
     return ys
 
 
+_NO_SPREAD = -1  # zs_gru_scan / zs_gru_bwd: no spread of wh over the co-resident blocks fits
+_BAR_WORDS = 32  # zs_gru_scan: barrier words a batch group (a 128-byte line each)
+
+
+def scan_plan(device: torch.device, b: int, h: int) -> tuple[int, ...]:
+    """Diagnostic: the spread of kernel 2 that ``zs_gru_scan`` picks for b
+    rows on ``device`` (csrc/gru.cu ``make_plan``): hidden columns a block,
+    column groups, batch rows a block, batch groups, rows staged a chunk, a
+    block's dynamic shared memory in bytes, rows a launch, and 1 when a
+    thread holds its share of wh in registers; all 0 when none fits."""
+    lib = build.load("gru")
+    plan = torch.zeros(8, dtype=torch.int32)
+    with torch.cuda.device(device):
+        err = build.bind(lib, "zs_gru_scan_plan", 1, 2, stream=False)(plan.data_ptr(), b, h)
+    build.check(lib, err, "gru plan")
+    return tuple(plan.tolist())
+
+
 def gru_scan(xw, wh, bh, lengths=None, *, reverse: bool = False):
-    """Same contract as :func:`gru_scan_plain`; the CUDA kernel (one launch
-    per step, all issued from one C call) on a CUDA tensor."""
+    """Same contract as :func:`gru_scan_plain`; kernel 2 (csrc/gru.cu) on a
+    CUDA tensor: ONE cooperative launch runs all T steps (at most a block
+    per SM, each owning some hidden columns and batch rows with its columns
+    of wh on chip, a barrier per batch group between steps). Any B (a
+    batch too large for the shared memory runs in slices, a launch each);
+    raises ValueError when a block's columns of wh (ceil(H / SMs) x 3H f32,
+    plus one staged row of h) exceed its shared memory on every spread (H
+    above ~1,500 on an H100)."""
     if xw.device.type == "cpu":
         return gru_scan_plain(xw, wh, bh, lengths, reverse=reverse)
     b, t, h = _check_args(xw, wh, bh, lengths, reverse)
@@ -84,16 +110,22 @@ def gru_scan(xw, wh, bh, lengths=None, *, reverse: bool = False):
     if lengths is not None:
         build.require(lengths, "gru lengths", (b,), dtype=torch.int32, device=xw.device)
     ys = torch.empty(b, t, h, device=xw.device)
+    n_sm = torch.cuda.get_device_properties(xw.device).multi_processor_count
+    bar = torch.empty(_BAR_WORDS * n_sm, dtype=torch.int32, device=xw.device)  # scratch: group counters
+    n_launches = ctypes.c_int(0)
     lib = build.load("gru")
-    fn = build.bind(lib, "zs_gru_scan", 5, 4)
+    fn = build.bind(lib, "zs_gru_scan", 7, 4)
     err = fn(
         xw.data_ptr(), wh.data_ptr(), bh.data_ptr(),
-        None if lengths is None else lengths.data_ptr(), ys.data_ptr(),
-        b, t, h, int(reverse), build.stream_of(xw),
+        None if lengths is None else lengths.data_ptr(), ys.data_ptr(), bar.data_ptr(),
+        ctypes.addressof(n_launches), b, t, h, int(reverse), build.stream_of(xw),
     )
+    if err == _NO_SPREAD:
+        raise ValueError(f"gru_scan: H={h} does not fit: a block's columns of wh exceed its shared "
+                         "memory on every spread over the co-resident blocks")
     build.check(lib, err, "gru kernel")
     global launches
-    launches += 1
+    launches += n_launches.value
     return ys
 
 
@@ -135,9 +167,6 @@ def gru_bwd_plain(xw, wh, bh, ys, dys, *, reverse: bool = False):
         dwh = dwh + hp.T @ dhw
         dbh = dbh + dhw.sum(0)
     return dxw, dwh, dbh
-
-
-_NO_SPREAD = -1  # zs_gru_bwd: no spread of wh over the co-resident blocks fits
 
 
 def bwd_plan(device: torch.device, b: int, h: int) -> tuple[int, ...]:

@@ -39,6 +39,23 @@ def speechlike(n: int, seed: int) -> np.ndarray:
     return (y + 0.05 * rng.standard_normal(n)).astype(np.float32)
 
 
+def fullscale(n: int, seed: int) -> np.ndarray:
+    """Seeded full-scale signal of one of four kinds (seed % 4): the
+    speech-like voice scaled to a peak of 0.99; a 0.99 tone at 2, 4 or 7
+    kHz under a quiet 1,234 Hz tone of 3e-4 (loud frames whose quiet bins
+    lie between 1e-2 and 1e-1); or a 0.99 square wave at 300 Hz."""
+    kind = seed % 4
+    t = np.arange(n) / 16000
+    if kind == 0:
+        y = speechlike(n, seed)
+        return (0.99 * y / np.abs(y).max()).astype(np.float32)
+    if kind == 3:
+        return (0.99 * np.sign(np.sin(2 * np.pi * 300 * t + seed))).astype(np.float32)
+    f = (2000, 4000, 7000)[(kind - 1 + seed // 4) % 3]
+    y = 0.99 * np.sin(2 * np.pi * f * t + seed) + 3e-4 * np.sin(2 * np.pi * 1234 * t)
+    return y.astype(np.float32)
+
+
 def write_workload(out: str | Path, seed: int = 0) -> tuple[Hps, AudioConfig, dict[str, int], int]:
     """Write ``<out>/bundle`` (flagship geometry, seeded weights, seeded
     stats for ``__global__``, V001 and V002) and ``<out>/wavs/utt<i>.wav``.
