@@ -19,11 +19,28 @@
    the port's CLI, counting kernel launches and keeping each kernel's
    inputs, checks the outputs, times kernels 1, 2 and 4 at the path's own
    inputs (beside their plain versions and bounds; kernel 2 also per
-   step), holds Griffin-Lim at GL-100 on each of the path's buckets
+   step), holds kernels 1 and 2 at those inputs (hold_path_calls) and
+   Griffin-Lim at GL-100 on each of the path's buckets
    against its plain version (and times the same recurrence as a loop of
    torch.fft calls, a yardstick), and holds the card's conversion of one
    utterance against the plain CPU path.
-5. Training path: a seeded 6-speaker wav corpus through the CLI at
+5. Corpus path: a seeded test split (4 speakers x 6 wavs of 1-8 s and one
+   of 27 s) through the CLI at flagship width with the same bundle:
+   preprocess (kernel 1) -> convert from the corpus (a) --units-only, (b)
+   uniform buckets at GL-100, (c) --adaptive-buckets 4 --bucket-cost-model
+   executed --frame-budget 8192 at GL-100 -> convert --units-only
+   --from-wavs (kernels 1, 2) -> eval --units -> submission -> submission
+   --validate, each route's launches counted apart and each kernel's
+   inputs kept. Holds kernels 1, 2 and 4 at every input a route gave them
+   against their plain versions (hold_path_calls states the bars). Checks
+   (a) == (b) bit for bit, every bit where (c) differs from (b) within a
+   1e-4 logit margin of the plain CPU encoder, no Griffin-Lim launch on a
+   units-only route and no frontend launch on a corpus-feature route, and
+   the validator's ok; runs (b) and (c) again (order b, c, c, b, b, c)
+   and prints their conversion seconds (the CLI's own) and walls, plan
+   and kernel path times, and kernel 2's time a step at 128, 192 and 256
+   rows.
+6. Training path: a seeded 6-speaker wav corpus through the CLI at
    flagship width: preprocess -> train1 (4 iterations a phase) -> train1
    resumed -> train2 (one GAN cycle) -> export, counting kernel launches
    and timing kernel 3 at the path's own inputs, then convert with the
@@ -32,10 +49,10 @@
    step on the card against the CPU from the same state and the same draws,
    with the CPU replaying the card's hard decisions and few of its own
    differing.
-6. Prints the card (nvidia-smi name, power limit), one JSON line with the
+7. Prints the card (nvidia-smi name, power limit), one JSON line with the
    kernels' results (``launches``: the count on the path the kernel's slice
    ported, conversion or training; ``launches_by_path``: each path's own
-   count; ``ms``/``plain_ms``/``bound_ms`` at the test shapes, ``path_*``
+   count, the corpus routes among them; ``ms``/``plain_ms``/``bound_ms`` at the test shapes, ``path_*``
    summed over that path's calls), and as the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -223,6 +240,91 @@ def path_times(name: str, calls: dict) -> dict:
         tot["shapes"].append(dict(shape=[tuple(a.shape) for a in args if hasattr(a, "shape")][0],
                                   count=count, ms=k_ms, plain_ms=p_ms, bound_ms=bnd))
     return tot
+
+
+def gl_consistency(out, amp, cfg) -> float:
+    """Griffin-Lim's spectral consistency: rel-L2 of the STFT magnitude of
+    the signal ``out`` against the magnitudes ``amp`` it was made from,
+    four frames in from each end."""
+    import torch
+
+    from zerospeech_tts_tpu_torch.dsp import audio
+
+    re, im = audio.stft(out, cfg)
+    m2 = torch.sqrt(re * re + im * im)[:, 4:-4]
+    m = amp[:, 4:-4]
+    return (torch.linalg.norm(m2 - m) / torch.linalg.norm(m)).item()
+
+
+def frontend_f64(ypad, cfg, n_frames):
+    """The plain frontend's linear magnitudes [B, T, F] in float64 (its f32
+    bases and signal, summed exactly enough to arbitrate between two f32
+    sums near the dB floor)."""
+    import torch
+
+    from zerospeech_tts_tpu_torch.dsp import audio
+
+    ca, sa, _, _ = audio._fused_bases(cfg)
+    segs = audio._fused_segments(ypad.double(), cfg, n_frames)
+    re = segs @ torch.from_numpy(ca).to(ypad.device).double()
+    im = segs @ torch.from_numpy(sa).to(ypad.device).double()
+    return torch.sqrt(re * re + im * im + 1e-12)
+
+
+def hold_path_calls(name: str, calls: dict, where: str) -> float:
+    """Each distinct input a kernel met on a main path (as ``capture`` kept
+    it) through the kernel and its plain version; fails on a bar, returns
+    the largest kernel-vs-plain difference (kernel 4: of consistency).
+
+    Kernel 2, and kernel 1's mel: max_abs_err <= 1e-4. Kernel 4: the two
+    signals' consistency with the magnitudes within 1e-3. Kernel 1's
+    magnitudes: within 1e-4 of the plain version's, except near the dB
+    floor, where the norm's slope (0.087 / m) turns the rounding of any
+    f32 sum into more: an element that differs by more than 1e-4 must lie
+    in the kernel's near-floor range (float64 magnitude from 9e-5 to the
+    larger of 1e-2 and 3e-4 of its frame's largest), and there the kernel
+    must be no farther from the float64 evaluation than the larger of 1e-4
+    and the plain version's own largest distance from it in that call."""
+    import torch
+
+    from zerospeech_tts_tpu_torch.dsp import audio
+
+    _, kfn, pfn = kernel_fns(name)
+    worst = 0.0
+    for args, kw, _ in calls.values():
+        out_k = kfn(*args, **kw)
+        torch.cuda.synchronize()
+        out_p = pfn(*args, **kw)
+        shape = tuple(args[0].shape)
+        if name == "griffin_lim":
+            err = abs(gl_consistency(out_k, args[0], args[1]) - gl_consistency(out_p, args[0], args[1]))
+            check(bool(torch.isfinite(out_k).all()) and err <= 1e-3,
+                  f"{where}: griffin_lim at {shape}: consistency differs from the plain version's by {err}")
+        elif name == "gru":
+            err = (out_k - out_p).abs().max().item()
+            check(err <= 1e-4, f"{where}: gru at {shape} {kw}: max_abs_err {err} (atol 1e-4)")
+        else:
+            (mel_k, mag_k), (mel_p, mag_p) = out_k, out_p
+            err_mel = (mel_k - mel_p).abs().max().item()
+            check(err_mel <= 1e-4, f"{where}: frontend mel at {shape}: max_abs_err {err_mel} (atol 1e-4)")
+            d = (mag_k - mag_p).abs()
+            err = max(err_mel, d.max().item())
+            over = d > 1e-4
+            if over.any():
+                lin = frontend_f64(*args)
+                ref = audio.amp_to_db_norm(lin, args[1])
+                near = (lin >= 9e-5) & (lin < torch.clamp(3e-4 * lin.amax(-1, keepdim=True), min=1e-2))
+                e_k = (mag_k.double() - ref).abs()[over].max().item()
+                e_p = (mag_p.double() - ref).abs().max().item()
+                print(f"  {where}: frontend at {shape}: {int(over.sum())} magnitudes differ from the plain "
+                      f"version's by more than 1e-4 (largest {d.max().item():.3e}), all near the floor: "
+                      f"{bool(near[over].all())}; there the kernel is {e_k:.3e} from float64, the plain "
+                      f"version up to {e_p:.3e}", flush=True)
+                check(bool(near[over].all()) and e_k <= max(1e-4, e_p),
+                      f"{where}: frontend at {shape}: magnitudes {err} from the plain version's; near floor "
+                      f"{bool(near[over].all())}, kernel {e_k} and plain {e_p} from float64")
+        worst = max(worst, err)
+    return worst
 
 
 def gl_fft_loop(mag, cfg, n_iters: int):
@@ -478,12 +580,6 @@ def main() -> None:
           f"{med['projection_fwd_ms']:.3f} ms vs cuDNN fwd {med['cudnn_fwd_ms']:.3f} ms (B=16 T=512 I=640): "
           f"{med['projection_fwd_ms'] / med['cudnn_fwd_ms']:.3f}x", flush=True)
 
-    def consistency(out, amp):
-        re, im = audio.stft(out, cfg)
-        m2 = torch.sqrt(re * re + im * im)[:, 4:-4]
-        m = amp[:, 4:-4]
-        return (torch.linalg.norm(m2 - m) / torch.linalg.norm(m)).item()
-
     def row_rel(a, b):  # signal rel-L2 of each row
         return torch.linalg.norm(a - b, dim=-1) / torch.linalg.norm(b, dim=-1)
 
@@ -505,7 +601,7 @@ def main() -> None:
         out_p = griffin_lim.griffin_lim_plain(amp, cfg, n_iters=8)
         check(out_k.shape == out_p.shape == (amp.shape[0], (amp.shape[1] - 1) * cfg.hop_length),
               f"griffin-lim output shape {tuple(out_k.shape)}")
-        ck, cp = consistency(out_k, amp), consistency(out_p, amp)
+        ck, cp = gl_consistency(out_k, amp, cfg), gl_consistency(out_p, amp, cfg)
         rel = rel_l2(out_k, out_p)
         rel_row = row_rel(out_k, out_p).max().item()
         ends = lambda x: torch.cat([x[:, :edge], x[:, -edge:]], -1)  # noqa: E731
@@ -580,6 +676,10 @@ def main() -> None:
               f"{conv_launches[name]} launches")
         print(f"{name} on the conversion path: {pt['launches']} launches, {len(pt['shapes'])} shapes: "
               f"kernel {pt['ms']:.3f} ms  plain {pt['plain_ms']:.3f} ms  bound {pt['bound_ms']:.4f} ms", flush=True)
+    for name in ("frontend", "gru"):  # Griffin-Lim at GL-100 below
+        path[name]["held"] = hold_path_calls(name, conv_calls[name], "conversion")
+        print(f"{name} at the conversion path's inputs against its plain version: {path[name]['held']:.3e}",
+              flush=True)
     steps = sum(count * args[0].shape[1] for args, kw, count in conv_calls["gru"].values())
     path["gru"]["steps"] = steps
     print(f"gru on the conversion path: {steps} steps, {1e3 * path['gru']['ms'] / steps:.3f} us a step",
@@ -598,7 +698,7 @@ def main() -> None:
         torch.cuda.synchronize()
         out_p = griffin_lim.griffin_lim_plain(amp, acfg_gl, n_iters=n_it)
         out_f = gl_fft_loop(amp, acfg_gl, n_it)
-        ck, cp, cf = consistency(out_k, amp), consistency(out_p, amp), consistency(out_f, amp)
+        ck, cp, cf = (gl_consistency(o, amp, acfg_gl) for o in (out_k, out_p, out_f))
         f_ms = cuda_ms(lambda: gl_fft_loop(amp, acfg_gl, n_it), 1)
         fft_loop_ms += count * f_ms
         row = dict(shape=tuple(amp.shape), iters=n_it, consistency_kernel=ck, consistency_plain=cp,
@@ -636,9 +736,12 @@ def main() -> None:
     check(agree >= 0.999, f"units on the card disagree with the CPU reference: {agree}")
     check(pcm_rel <= 1e-2, f"audio on the card disagrees with the CPU reference: {pcm_rel}")
 
+    # ------------------------------------------------ corpus path, end to end
+    corpus = corpus_path(OUT / "corpus", OUT / "bundle")
+
     # ---------------------------------------------- training path, end to end
     train = train_path(OUT / "train")
-    by_path = {"conversion": conv_launches, "training": train.pop("launches"),
+    by_path = {"conversion": conv_launches, **corpus.pop("launches"), "training": train.pop("launches"),
                "convert_after_training": train.pop("convert_launches")}
     path["gru_bwd"] = train.pop("path")
     step_check = card_vs_cpu_steps()
@@ -661,12 +764,217 @@ def main() -> None:
              gru_like_for_like=results["gru_vs_cudnn"], gru_step_us_b16=step_us,
              gl_rel_l2=results["griffin_lim"]["rel_l2"], gl100_conversion=gl100, path=path,
              reference_unit_agreement=agree,
-             reference_pcm_rel_l2=pcm_rel, training=train,
+             reference_pcm_rel_l2=pcm_rel, corpus=corpus, training=train,
              card_vs_cpu_steps=step_check, card=card_line()), indent=2) + "\n")
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
+
+
+def corpus_path(work: Path, bundle: Path, device: str = "cuda") -> dict:
+    """The challenge-artifact routes through the CLI on ``device`` (the
+    card) with the flagship bundle: preprocess a test split, convert it
+    from the corpus three ways, units from its wavs, eval, submission. Each
+    route's kernel launches are counted apart (set to 0 just before it,
+    read just after)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from zerospeech_tts_tpu_torch import cli, ops
+    from zerospeech_tts_tpu_torch.convert import load_corpus_split, read_units
+    from zerospeech_tts_tpu_torch.export import load_export
+    from zerospeech_tts_tpu_torch.models import Encoder
+    from zerospeech_tts_tpu_torch.ops import griffin_lim, gru
+    from zerospeech_tts_tpu_torch.params import from_flax
+    from zerospeech_tts_tpu_torch.tools.workload import TARGETS, cuda_ms, write_test_corpus
+
+    shutil.rmtree(work, ignore_errors=True)
+    corpus = write_test_corpus(work, seed=0)
+    ds, dev = str(work / "ds"), ["--device", device]
+    src = ["--from-export", str(bundle), "-dataset_path", ds]
+    routes = {
+        "corpus_preprocess": ["preprocess", "--corpus", str(corpus), "-dataset_path", ds],
+        "corpus_units_only": ["convert", *src, "-result_dir", str(work / "a"), "--units-only"],
+        "corpus_uniform": ["convert", *src, "-result_dir", str(work / "b"), "--target", *TARGETS],
+        "corpus_adaptive": ["convert", *src, "-result_dir", str(work / "c"), "--target", *TARGETS,
+                            "--adaptive-buckets", "4", "--bucket-cost-model", "executed",
+                            "--frame-budget", "8192"],
+        "wavs_units_only": ["convert", "--from-export", str(bundle), "--from-wavs",
+                            str(corpus / "test"), "-result_dir", str(work / "d"), "--units-only"],
+    }
+    launches, outs, calls, walls = {}, {}, {}, {}
+    for route, argv in routes.items():
+        calls[route] = {}
+        with capture(("frontend", "gru", "griffin_lim"), calls[route]):
+            ops.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[route] = cli.main([*argv, *dev])
+            torch.cuda.synchronize()
+            walls[route] = time.perf_counter() - t0
+            launches[route] = ops.launch_counts()
+        print(f"{route}: wall {walls[route]:.3f} s; launches {launches[route]}", flush=True)
+    n_utt = outs["corpus_preprocess"]["counts"]["test"]
+    for route, want in (("corpus_preprocess", ("frontend",)), ("corpus_units_only", ("gru",)),
+                        ("corpus_uniform", ("gru", "griffin_lim")), ("corpus_adaptive", ("gru", "griffin_lim")),
+                        ("wavs_units_only", ("frontend", "gru"))):
+        for name in ("frontend", "gru", "griffin_lim"):
+            n = launches[route][name]
+            check(n > 0 if name in want else n == 0, f"{route}: kernel {name} launched {n} times")
+        if route != "corpus_preprocess":
+            check(outs[route]["n_utterances"] == n_utt, f"{route}: {outs[route]['n_utterances']} utterances")
+
+    # every kernel at each route's own captured inputs against its plain
+    # version (shapes no earlier phase reaches: kernel 4 at 24 x 640 frames,
+    # past the L2, and at 2 x 2,176; kernel 2 masked at 24 rows x 640
+    # steps); a wrapper's captured calls are its launches
+    held = {}
+    for route in routes:
+        for name in ("frontend", "gru", "griffin_lim"):
+            n = sum(count for _, _, count in calls[route][name].values())
+            check(n == launches[route][name], f"{route}: {n} captured {name} calls, "
+                  f"{launches[route][name]} launches")
+            if calls[route][name]:
+                held.setdefault(name, {})[route] = hold_path_calls(name, calls[route][name], route)
+    print("kernels at the corpus routes' inputs against their plain versions: " + "; ".join(
+        f"{name} {' '.join(f'{r} {e:.3e}' for r, e in by.items())} "
+        f"({'consistency |diff|, bar 1e-3' if name == 'griffin_lim' else 'max_abs_err, bar 1e-4'}"
+        f"{' beside float64 near the dB floor' if name == 'frontend' else ''})"
+        for name, by in held.items()), flush=True)
+
+    # outputs: (a) == (b) bit for bit; (c) agrees with (b) up to bits whose
+    # plain CPU logit margin is < 1e-4; (d) well formed
+    bun = load_export(bundle)
+    hps = bun.hps
+    feats, names, srcs = load_corpus_split(ds, "test")
+    flips, flip_margin, n_bits = 0, 0.0, 0
+    cpu_enc = None
+    for f, utt, spk in zip(feats, names, srcs):
+        ub = read_units(work / "b" / "units" / f"{utt}.txt")
+        check(ub.shape == (-(-f.shape[0] // hps.downsample), hps.emb_size), f"{utt} units {ub.shape}")
+        check(np.array_equal(read_units(work / "a" / "units" / f"{utt}.txt"), ub),
+              f"{utt}: units-only units differ from the full conversion's")
+        uc = read_units(work / "c" / "units" / f"{utt}.txt")
+        n_bits += ub.size
+        if (uc != ub).any():
+            if cpu_enc is None:
+                cpu_enc = Encoder(hps)
+                cpu_enc.load_state_dict(from_flax({"enc": bun.enc, "dec": bun.dec})[0])
+                cpu_enc.eval()
+            x = torch.from_numpy(bun.stats.normalize(f, spk)).to(torch.bfloat16).float()
+            with torch.inference_mode():
+                lg = cpu_enc(x[None])[0].numpy()
+            m = np.abs(lg[..., 0] - lg[..., 1])[uc != ub]
+            flips += m.size
+            flip_margin = max(flip_margin, float(m.max()))
+            check(bool((m < 1e-4).all()), f"{utt}: adaptive units flip bits with margins {m[m >= 1e-4]}")
+        for tgt in TARGETS:
+            for d in ("b", "c"):
+                check((work / d / tgt / f"{utt}.wav").exists(), f"{d}/{tgt}/{utt}.wav missing")
+    for p in sorted((corpus / "test").glob("*.wav")):
+        u = read_units(work / "d" / "units" / f"{p.stem}.txt")
+        check(u.shape[1] == hps.emb_size and bool(((u == 0) | (u == 1)).all()), f"d/{p.stem} units")
+    print(f"units: units-only == uniform on all {n_utt} utterances; adaptive vs uniform {flips} of "
+          f"{n_bits} bits differ (largest plain-CPU margin {flip_margin:.3e}, < 1e-4)", flush=True)
+
+    ev = cli.main(["eval", "--units", str(work / "b" / "units")])
+    sub = cli.main(["submission", "--lang", f"english={work / 'b'}:{TARGETS[0]}", "-o", str(work / "s.zip")])
+    val = cli.main(["submission", "--validate", str(work / "s.zip")])
+    check(sub["ok"] and val["ok"] and val["languages"]["english"]["n_utterances"] == n_utt,
+          f"submission: {val['problems'][:5]}")
+    print(f"eval: {ev['bitrate']['bitrate_bits_per_second']} bits/s over {ev['bitrate']['n_frames']} "
+          f"frames; submission --validate ok", flush=True)
+
+    # more runs of (b) and (c), uncounted, in the order c, b, b, c after the
+    # counted b, c: the wall around cli.main (bundle load and Converter set-up
+    # included) and the CLI's own conversion seconds (features in, files out)
+    walls_of = {r: [walls[r]] for r in ("corpus_uniform", "corpus_adaptive")}
+    secs_of = {r: [outs[r]["seconds"]] for r in walls_of}
+    for i, route in enumerate(("corpus_adaptive", "corpus_uniform", "corpus_uniform", "corpus_adaptive")):
+        argv = [*routes[route], *dev]
+        argv[argv.index("-result_dir") + 1] = str(work / f"{route}_again{i}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        secs_of[route].append(cli.main(argv)["seconds"])
+        torch.cuda.synchronize()
+        walls_of[route].append(time.perf_counter() - t0)
+
+    report = {}
+    for route in ("corpus_uniform", "corpus_adaptive"):
+        out = outs[route]
+        pt = {name: path_times(name, calls[route][name]) for name in ("gru", "griffin_lim")}
+        big = max(calls[route]["gru"].values(), key=lambda c: c[0][0].shape[0])
+        rows, t_big = big[0][0].shape[0], big[0][0].shape[1]
+        step_us = 1e3 * cuda_ms(lambda: gru.gru_scan(*big[0], **big[1]), 3) / t_big
+        warm = float(np.median(secs_of[route][1:]))  # the counted first run carries one-time costs
+        kernel_s = sum(v["ms"] for v in pt.values()) / 1e3
+        report[route] = dict(
+            walls_s=walls_of[route], seconds=secs_of[route], warm_seconds=warm,
+            utterances_per_s=n_utt / warm, kernel_share_of_warm_seconds=kernel_s / warm,
+            griffin_lim_shapes=pt["griffin_lim"]["shapes"],
+            **{k: out[k] for k in ("n_dispatches", "padding_overhead", "executed_overhead", "bucket_edges")},
+            launches=launches[route], path_ms={k: v["ms"] for k, v in pt.items()},
+            path_plain_ms={k: v["plain_ms"] for k, v in pt.items()},
+            path_bound_ms={k: v["bound_ms"] for k, v in pt.items()},
+            gru_largest_rows=rows, gru_largest_rows_us_a_step=step_us)
+        print(f"{route}: conversion seconds (CLI) {', '.join(f'{x:.4f}' for x in secs_of[route])}, walls "
+              f"{', '.join(f'{x:.4f}' for x in walls_of[route])} s (runs in the order b, c, c, b, b, c); "
+              f"warm median {warm:.4f} s, {n_utt / warm:.3f} utterances/s; {out['n_dispatches']} dispatches, "
+              f"edges {out['bucket_edges']}, padding overhead {out['padding_overhead']}, executed overhead "
+              f"{out['executed_overhead']}; "
+              + "; ".join(f"{k} {v['launches']} launches, kernel {v['ms']:.3f} ms, plain {v['plain_ms']:.3f} ms, "
+                          f"bound {v['bound_ms']:.4f} ms" for k, v in pt.items())
+              + f"; kernels 2 + 4 {100 * kernel_s / warm:.1f}% of the warm seconds"
+              + f"; gru at its largest {rows} rows (T={t_big}): {step_us:.3f} us a step", flush=True)
+        print(f"  griffin_lim by shape: " + ", ".join(
+            f"{x['shape']} x{x['count']} {x['ms']:.3f} ms" for x in pt["griffin_lim"]["shapes"]), flush=True)
+
+    # kernel 4 (GL-20) at rows x 640 frames: time a launch (n_iters + 2 a
+    # call) and a frame-iteration, beside the complex spectra's bytes
+    gl_rows = {}
+    cfg = bun.acfg
+    for rows in (2, 4, 8, 16, 24, 32):
+        g = torch.Generator().manual_seed(rows)
+        amp = (torch.rand(rows, 640, cfg.n_freq, generator=g) ** 3).to(device)
+        ms = cuda_ms(lambda: griffin_lim.griffin_lim(amp, cfg, n_iters=20), 3)
+        spec_mb = rows * 640 * cfg.n_freq * 8 / 1e6
+        gl_rows[rows] = dict(ms=ms, us_a_launch=1e3 * ms / 22, ns_a_frame_iteration=1e6 * ms / (22 * rows * 640),
+                             spectra_mb=spec_mb)
+        print(f"griffin_lim GL-20 {rows} x 640: {ms:.3f} ms, {gl_rows[rows]['us_a_launch']:.1f} us a launch, "
+              f"{gl_rows[rows]['ns_a_frame_iteration']:.2f} ns a frame-iteration, complex spectra "
+              f"{spec_mb:.1f} MB (L2 50 MB)", flush=True)
+
+    # kernel 2 at the frame budget's row counts: 128 utterance rows, and the
+    # decoder's 2 x 128 and the encoder's 192 beside them
+    big_rows = {}
+    for b in (128, 192, 256):
+        g = torch.Generator().manual_seed(b)
+        xw = torch.randn(b, 64, 1536, generator=g).to(device)
+        wh = (torch.randn(512, 1536, generator=g) / math.sqrt(512)).to(device)
+        bh = (0.1 * torch.randn(1536, generator=g)).to(device)
+        lens = torch.randint(1, 65, (b,), generator=g, dtype=torch.int32).to(device)
+        before = gru.launches
+        ys = gru.gru_scan(xw, wh, bh)
+        torch.cuda.synchronize()
+        n_launch = gru.launches - before
+        err = max((ys - gru.gru_scan_plain(xw, wh, bh)).abs().max().item(),
+                  (gru.gru_scan(xw, wh, bh, lens, reverse=True)
+                   - gru.gru_scan_plain(xw, wh, bh, lens, reverse=True)).abs().max().item())
+        check(err <= 1e-4, f"gru B={b}: max_abs_err {err}")
+        us = 1e3 * cuda_ms(lambda: gru.gru_scan(xw, wh, bh), 5) / 64
+        rows_a_launch = gru.scan_plan(xw.device, b, 512)[6]
+        big_rows[b] = dict(us_a_step=us, launches_a_scan=n_launch, rows_a_launch=rows_a_launch, max_abs_err=err)
+        print(f"gru B={b} T=64 H=512: {us:.3f} us a step, {n_launch} launch(es) a scan of {rows_a_launch} rows "
+              f"each, one after another on the stream; max_abs_err fwd / masked rev {err:.3e} (atol 1e-4)",
+              flush=True)
+    return dict(launches=launches, routes=report, held_at_path=held, gru_big_rows=big_rows,
+                gl_rows_640=gl_rows, unit_flips=flips,
+                unit_bits=n_bits, flip_margin=flip_margin, bitrate=ev["bitrate"],
+                preprocess_s=walls["corpus_preprocess"], wavs_units_only_s=walls["wavs_units_only"],
+                units_only_s=walls["corpus_units_only"])
 
 
 def train_path(work: Path) -> dict:

@@ -78,11 +78,13 @@ def test_frontend_kernel_matches_plain_on_loud_frames(cuda, cfg_kw):
 
 
 @pytest.mark.parametrize("t", [1, 7, 64, 512])
-@pytest.mark.parametrize("b", [1, 2, 6, 16, 64, 128])
+@pytest.mark.parametrize("b", [1, 2, 6, 16, 64, 128, 192, 256])
 def test_gru_kernel_matches_plain(cuda, b, t):
     """Kernel 2 (one cooperative launch a scan) against gru_scan_plain at
     1e-4, for H = 40, 41 (3H not a multiple of 4: rows staged as floats)
-    and 512, forward, reverse and reverse masked with ragged lengths."""
+    and 512, forward, reverse and reverse masked with ragged lengths. B =
+    192 and 256: the decoder's and encoder's rows under a 128-row
+    frame-budget cap."""
     for h in (40, 41, 512):
         for reverse, masked in ((False, False), (True, False), (True, True)):
             gen = torch.Generator().manual_seed(b * t + h)
@@ -99,10 +101,33 @@ def test_gru_kernel_matches_plain(cuda, b, t):
             assert err <= 1e-4, (h, reverse, masked, err)
 
 
+def test_gru_kernel_slices_a_batch_too_large_for_one_launch(cuda):
+    """B = 2,048 at H = 512 does not fit one cooperative launch on an H100
+    (its blocks' xw rows outgrow the shared memory): kernel 2 runs it as
+    two slices of 1,024 rows, a launch each, and still matches
+    gru_scan_plain at 1e-4, forward and reverse masked."""
+    b, t, h = 2048, 3, 512
+    rows = gru.scan_plan(cuda, b, h)[6]
+    assert rows == 1024, rows
+    gen = torch.Generator().manual_seed(b)
+    xw = torch.randn(b, t, 3 * h, generator=gen).to(cuda)
+    wh = (torch.randn(h, 3 * h, generator=gen) / math.sqrt(h)).to(cuda)
+    bh = (0.1 * torch.randn(3 * h, generator=gen)).to(cuda)
+    lens = torch.randint(1, t + 1, (b,), generator=gen, dtype=torch.int32).to(cuda)
+    for lengths, reverse in ((None, False), (lens, True)):
+        before = gru.launches
+        out = gru.gru_scan(xw, wh, bh, lengths, reverse=reverse)
+        torch.cuda.synchronize()
+        assert gru.launches == before + 2, reverse
+        err = (out - gru.gru_scan_plain(xw, wh, bh, lengths, reverse=reverse)).abs().max().item()
+        assert err <= 1e-4, (reverse, err)
+
+
 GL_CONFIGS = {**CONFIGS, **FFT_SIZES}
 
 
 @pytest.mark.parametrize("b,t,cfg_name", [(4, 512, "default"), (1, 2500, "default"),
+                                          (2, 2100, "default"),  # conversion-shaped, past 2,048 frames
                                           (2, 5, "default"), (3, 100, "hop50"),
                                           *((3, 100, f"n{n}") for n in (16, 32, 64, 128, 512))])
 def test_griffin_lim_kernel_matches_plain(cuda, b, t, cfg_name):

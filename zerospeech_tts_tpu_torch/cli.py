@@ -7,20 +7,29 @@
     python -m zerospeech_tts_tpu_torch train2 -dataset_path DS -ckpt_dir CK \
         [--targets V001 V002] [--iters-override N]
     python -m zerospeech_tts_tpu_torch export -dataset_path DS -ckpt_dir CK --out B
-    python -m zerospeech_tts_tpu_torch convert --from-export B --from-wavs W \
-        -result_dir O [--target V001 V002] [--gl-iters N] [--batch-size N] \
-        [--limit N]
+    python -m zerospeech_tts_tpu_torch convert (--from-export B | -dataset_path DS \
+        -ckpt_dir CK [--load_model STEP|DIR]) [--from-wavs W | -dataset_path DS \
+        [--split test]] -result_dir O [--target V001 V002] [--units-only] \
+        [--gl-iters N] [--batch-size N] [--limit N] [--frame-budget N] \
+        [--adaptive-buckets K [--bucket-overhead-target F] \
+        [--bucket-cost-model frames|executed]]
     python -m zerospeech_tts_tpu_torch convert-single --from-export B \
         --source X.wav --target V001 -result_dir O
+    python -m zerospeech_tts_tpu_torch eval [--units O/units [--abx ITEMS \
+        [--abx-across] [--abx-max-triples N]]] [--recon] [--stability] \
+        [-dataset_path DS -ckpt_dir CK --split train --n-segments 64]
+    python -m zerospeech_tts_tpu_torch submission --lang english=O:V001 \
+        [-o submission.zip] [--author A ...] | --validate ZIP
 
 Same flags and output layouts as the ``zstts`` verbs, with the port's own
 files: the corpus is a numpy directory (data/corpus.py), checkpoints are
 ``torch.save`` files (train/checkpoint.py), the bundle holds ``model.npz``
 (export.py). Training always samples its batches from the corpus arena on
 the device, so ``-index_path`` and ``--device-data`` have no counterpart.
-Every verb takes ``--device``: ``cuda`` (the default) runs the hand-written
-kernels and exits with an error when no CUDA device is visible; ``cpu``
-runs their plain versions.
+Every verb that runs a model takes ``--device``: ``cuda`` (the default)
+runs the hand-written kernels and exits with an error when no CUDA device
+is visible; ``cpu`` runs their plain versions. ``submission`` and ``eval
+--units/--abx`` read files only.
 """
 
 from __future__ import annotations
@@ -76,14 +85,42 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--load_model", nargs="?", const="latest", default=None, metavar="STEP|DIR",
                    help="checkpoint selection (see train1)")
 
-    p = sub.add_parser("convert", help="corpus conversion + unit extraction from wavs (ref --test)")
-    p.add_argument("--from-export", required=True, metavar="DIR", help="export bundle (model.npz)")
-    p.add_argument("--from-wavs", required=True, metavar="DIR", help="directory of source wavs")
+    p = sub.add_parser("convert", help="corpus conversion + unit extraction (ref --test)")
+    p.add_argument("--from-export", default=None, metavar="DIR",
+                   help="export bundle (model.npz, its own hps), in place of -ckpt_dir")
+    p.add_argument("-hps", "--hps", default=str(DEFAULT_HPS_PATH),
+                   help="hps JSON of the -ckpt_dir model")
+    p.add_argument("-dataset_path", "--dataset_path", default=None,
+                   help="corpus directory: features (unless --from-wavs), and with -ckpt_dir "
+                        "the speaker map and statistics")
+    p.add_argument("-ckpt_dir", "--ckpt_dir", default=None)
+    p.add_argument("--load_model", nargs="?", const="latest", default=None, metavar="STEP|DIR",
+                   help="checkpoint selection (see train1)")
+    p.add_argument("--from-wavs", default=None, metavar="DIR",
+                   help="convert straight from a directory of wavs (frontend on the device)")
     p.add_argument("-result_dir", "--result_dir", required=True)
     p.add_argument("--target", nargs="*", default=None, help="target speakers (default: V*)")
+    p.add_argument("--split", default="test", help="corpus split to convert")
     p.add_argument("--gl-iters", type=int, default=None)
     p.add_argument("--batch-size", type=int, default=8)
     p.add_argument("--limit", type=int, default=None)
+    p.add_argument("--units-only", action="store_true",
+                   help="dump discrete units without synthesis (ref enc_only)")
+    p.add_argument("--feat", default="lin",
+                   help="features the model was trained on (lin only, see ROADMAP)")
+    p.add_argument("--adaptive-buckets", type=_positive_int, default=None, metavar="K",
+                   help="fit <=K length-bucket edges (multiples of 64 frames) to the "
+                        "utterances' lengths before converting")
+    p.add_argument("--bucket-overhead-target", type=float, default=None, metavar="FRAC",
+                   help="with --adaptive-buckets K: the smallest number of edges (<=K) "
+                        "whose planned padding overhead is <= FRAC")
+    p.add_argument("--frame-budget", type=_positive_int, default=None, metavar="N",
+                   help="rows*frames a dispatch: short buckets batch more utterances "
+                        "(the largest allowed row count within N, <=128 rows)")
+    p.add_argument("--bucket-cost-model", default="frames", choices=["frames", "executed"],
+                   help="with --adaptive-buckets K: the planner minimizes padded frames, "
+                        "or the rows*frames the dispatches execute (tail rounding, "
+                        "--frame-budget caps)")
     p.add_argument("--device", default="cuda", help="cuda (kernels) or cpu (plain PyTorch)")
 
     p = sub.add_parser("convert-single", help="single-utterance VC (ref --test_single)")
@@ -93,7 +130,51 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--target", required=True, help="target speaker name")
     p.add_argument("--gl-iters", type=int, default=None)
     p.add_argument("--device", default="cuda", help="cuda (kernels) or cpu (plain PyTorch)")
+
+    p = sub.add_parser("eval", help="challenge metrics: unit bitrate, ABX, recon L1, stability")
+    common(p, dataset_required=False)
+    p.add_argument("--units", default=None, metavar="DIR", help="unit-file dir -> bitrate + stats")
+    p.add_argument("-ckpt_dir", "--ckpt_dir", default=None)
+    p.add_argument("--recon", action="store_true", help="reconstruction L1 (needs dataset+ckpt)")
+    p.add_argument("--stability", action="store_true",
+                   help="unit stability under window shifts (needs dataset+ckpt)")
+    p.add_argument("--abx", default=None, metavar="ITEMFILE",
+                   help="mini-ABX over dumped units (needs --units DIR; item lines: "
+                        "utt start end cls spk, latent-frame indices)")
+    p.add_argument("--abx-across", action="store_true",
+                   help="across-speaker ABX instead of within-speaker")
+    p.add_argument("--abx-max-triples", type=int, default=None, metavar="N",
+                   help="cap triples per (class-pair, speaker-context) cell by seeded sampling")
+    p.add_argument("--split", default="train")
+    p.add_argument("--n-segments", type=int, default=64)
+
+    p = sub.add_parser("submission", help="package convert results into a ZeroSpeech "
+                                          "archive, or validate one")
+    p.add_argument("-hps", "--hps", default=str(DEFAULT_HPS_PATH),
+                   help="hps JSON (sets the latent frame duration for bitrate)")
+    p.add_argument("--lang", action="append", default=None, metavar="NAME=RESULT_DIR:TARGET",
+                   help="language -> convert result dir + submitted target voice, "
+                        "e.g. english=out:V001 (repeatable)")
+    p.add_argument("-o", "--out", default="submission.zip", help="archive path")
+    p.add_argument("--validate", default=None, metavar="ZIP",
+                   help="validate an existing archive instead of building")
+    p.add_argument("--author", default=None)
+    p.add_argument("--affiliation", default=None)
+    p.add_argument("--system-description", default=None)
+    p.add_argument("--auxiliary1", default=None, help="auxiliary embedding 1 description")
+    p.add_argument("--auxiliary2", default=None, help="auxiliary embedding 2 description")
+    p.add_argument("--parallel-data", action="store_true",
+                   help="declare the system used parallel training data")
+    p.add_argument("--external-data", action="store_true",
+                   help="declare the system used external (non-challenge) data")
     return ap
+
+
+def _positive_int(s: str) -> int:
+    v = int(s)
+    if v < 1:
+        raise argparse.ArgumentTypeError(f"must be a positive integer, got {s}")
+    return v
 
 
 def _device(args) -> torch.device:
@@ -128,7 +209,7 @@ def _restore_source(args, hps, ckpt):
     DIR (its latest, read-only), or the latest of -ckpt_dir."""
     from zerospeech_tts_tpu_torch.train import CheckpointManager
 
-    v = args.load_model
+    v = getattr(args, "load_model", None)  # eval has no --load_model: the latest
     if v in (None, "latest"):
         return ckpt, None
     if str(v).lstrip("-").isdigit():
@@ -241,43 +322,90 @@ def cmd_export(args):
     return out
 
 
+def _restore_state(args, hps, dev):
+    """The train state of -ckpt_dir (or --load_model's choice) on ``dev``;
+    the directory is only read."""
+    from zerospeech_tts_tpu_torch.train import CheckpointManager, init_state
+
+    ckpt = CheckpointManager(args.ckpt_dir, hps=hps, read_only=True)
+    src, step = _restore_source(args, hps, ckpt)
+    if src.latest_step() is None:
+        sys.exit(f"no checkpoint in {args.ckpt_dir}")
+    return src.restore(init_state(hps, device=dev), step)
+
+
 def _load_converter(args):
+    """(Converter, speaker map): from --from-export B, or from -dataset_path
+    + -ckpt_dir (hps from -hps, statistics from the corpus)."""
     from zerospeech_tts_tpu_torch.convert import Converter
-    from zerospeech_tts_tpu_torch.export import load_export
     from zerospeech_tts_tpu_torch.params import from_flax
 
-    _device(args)
-    b = load_export(args.from_export)
-    enc_sd, dec_sd = from_flax({"enc": b.enc, "dec": b.dec})
+    dev = _device(args)
+    if getattr(args, "from_export", None):
+        from zerospeech_tts_tpu_torch.export import load_export
+
+        b = load_export(args.from_export)
+        hps, acfg, stats, speakers = b.hps, b.acfg, b.stats, dict(b.speakers)
+        enc_sd, dec_sd = from_flax({"enc": b.enc, "dec": b.dec})
+    else:
+        from zerospeech_tts_tpu_torch.data.corpus import load_speaker_map
+        from zerospeech_tts_tpu_torch.data.device_dataset import check_speaker_ids
+        from zerospeech_tts_tpu_torch.data.speaker_norm import SpeakerStats
+
+        hps, acfg = load_configs(args.hps)
+        speakers = load_speaker_map(args.dataset_path)
+        check_speaker_ids(speakers, hps)
+        state = _restore_state(args, hps, dev)
+        enc_sd, dec_sd = state.enc.state_dict(), state.dec.state_dict()
+        stats = SpeakerStats.load_corpus(args.dataset_path, "lin") if hps.speaker_norm else None
     conv = Converter(
-        b.hps, b.acfg, enc_sd, dec_sd,
+        hps, acfg, enc_sd, dec_sd,
         gl_iters=args.gl_iters,
         batch_size=getattr(args, "batch_size", 8),
-        stats=b.stats,
-        device=args.device,
+        frame_budget=getattr(args, "frame_budget", None),
+        stats=stats,
+        device=dev,
     )
-    return conv, dict(b.speakers)
+    return conv, speakers
 
 
 def cmd_convert(args):
-    from zerospeech_tts_tpu_torch.convert import convert_wav_dir
+    from zerospeech_tts_tpu_torch.convert import convert_corpus, convert_wav_dir
 
+    if args.feat != "lin":
+        sys.exit(f"--feat {args.feat}: the port converts lin features only (feat='mel' is "
+                 "ROADMAP item 2, not ported yet)")
+    if args.from_export:
+        if not (args.from_wavs or args.dataset_path):
+            sys.exit("--from-export has no corpus features: pass --from-wavs DIR "
+                     "(frontend on the device) or also give -dataset_path")
+    elif not (args.dataset_path and args.ckpt_dir):
+        sys.exit("pass -dataset_path and -ckpt_dir, or --from-export DIR")
     conv, speakers = _load_converter(args)
     targets = args.target or sorted(s for s in speakers if s.startswith("V"))
     if not targets:
-        sys.exit("no target speakers given and none named V* in the bundle")
+        sys.exit("no target speakers given and none named V* in the speaker map")
     missing = [t for t in targets if t not in speakers]
     if missing:
-        sys.exit(f"target speakers {missing} not in the bundle's speaker map")
+        sys.exit(f"target speakers {missing} not in the speaker map")
+    opts = dict(sr=conv.acfg.sr, limit=args.limit, units_only=args.units_only,
+                adaptive_buckets=args.adaptive_buckets,
+                bucket_overhead_target=args.bucket_overhead_target,
+                bucket_cost_model=args.bucket_cost_model)
+    tgts = {t: speakers[t] for t in targets}
     t0 = time.time()
-    out = convert_wav_dir(
-        conv, args.from_wavs, args.result_dir, {t: speakers[t] for t in targets},
-        sr=conv.acfg.sr, limit=args.limit,
-    )
+    if args.from_wavs:
+        out = convert_wav_dir(conv, args.from_wavs, args.result_dir, tgts, **opts)
+    else:
+        out = convert_corpus(conv, args.dataset_path, args.result_dir, tgts, split=args.split,
+                             **opts)
+    _sync(conv.device)
     dt = time.time() - t0
+    out["seconds"] = dt
     print(
-        f"converted {out['n_utterances']} utterances x {len(targets)} targets "
-        f"in {dt:.1f}s ({out['n_wavs'] / dt:.2f} wav/s) -> {out['result_dir']}"
+        f"converted {out['n_utterances']} utterances x {0 if args.units_only else len(targets)} "
+        f"targets in {dt:.1f}s ({out['n_utterances'] / dt:.2f} utt/s, "
+        f"{out['n_wavs'] / dt:.2f} wav/s) -> {out['result_dir']}"
     )
     return out
 
@@ -295,11 +423,87 @@ def cmd_convert_single(args):
     return out
 
 
+def cmd_eval(args):
+    from zerospeech_tts_tpu_torch import eval as ev
+
+    hps, acfg = load_configs(args.hps)
+    report = {}
+    if args.units:
+        frame_seconds = acfg.hop_length * hps.downsample / acfg.sr
+        unit_arrays = ev.load_unit_files(args.units)
+        report["bitrate"] = ev.unit_bitrate(args.units, frame_seconds, units=unit_arrays)
+        report["units"] = ev.unit_stats(args.units, units=unit_arrays)
+    if args.abx:
+        if not args.units:
+            sys.exit("--abx needs --units DIR (the dumped unit files)")
+        items = ev.load_abx_items(args.abx, args.units)
+        report["abx"] = ev.abx_discriminability(
+            items, across_speaker=args.abx_across, max_triples_per_cell=args.abx_max_triples,
+        )
+    if args.recon or args.stability:
+        if not (args.dataset_path and args.ckpt_dir):
+            sys.exit("--recon/--stability need -dataset_path and -ckpt_dir")
+        state = _restore_state(args, hps, _device(args))
+        if args.stability:
+            report["stability"] = ev.unit_stability(state, args.dataset_path, hps, split=args.split)
+        if args.recon:
+            report["reconstruction"] = ev.reconstruction_l1(
+                state, args.dataset_path, hps, split=args.split, n_segments=args.n_segments,
+            )
+    if not report:
+        sys.exit("nothing to evaluate: pass --units DIR, --recon, and/or --stability")
+    print(json.dumps(report, indent=2))
+    return report
+
+
+def cmd_submission(args):
+    from zerospeech_tts_tpu_torch.submission import build_submission, validate_submission
+
+    hps, acfg = load_configs(args.hps)
+    frame_seconds = acfg.hop_length * hps.downsample / acfg.sr
+    if args.validate:
+        report = validate_submission(args.validate, frame_seconds=frame_seconds, sr=acfg.sr)
+    else:
+        if not args.lang:
+            sys.exit("pass --lang NAME=RESULT_DIR:TARGET at least once (or --validate ZIP)")
+        langs = {}
+        for spec in args.lang:
+            try:
+                name, rest = spec.split("=", 1)
+                result_dir, target = rest.rsplit(":", 1)
+            except ValueError:
+                sys.exit(f"bad --lang spec {spec!r}: want NAME=RESULT_DIR:TARGET")
+            langs[name] = (result_dir, target)
+        meta = {
+            k: v
+            for k, v in (
+                ("author", args.author),
+                ("affiliation", args.affiliation),
+                ("system description", args.system_description),
+                ("auxiliary1 description", args.auxiliary1),
+                ("auxiliary2 description", args.auxiliary2),
+            )
+            if v is not None
+        }
+        if args.parallel_data:
+            meta["system uses parallel data"] = True
+        if args.external_data:
+            meta["system uses external data"] = True
+        report = build_submission(args.out, langs, metadata=meta, frame_seconds=frame_seconds,
+                                  sr=acfg.sr)
+        report["archive"] = args.out
+    print(json.dumps(report, indent=2))
+    if not report["ok"]:
+        sys.exit(1)
+    return report
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     return {"preprocess": cmd_preprocess, "train1": cmd_train1, "train2": cmd_train2,
             "export": cmd_export, "convert": cmd_convert,
-            "convert-single": cmd_convert_single}[args.cmd](args)
+            "convert-single": cmd_convert_single, "eval": cmd_eval,
+            "submission": cmd_submission}[args.cmd](args)
 
 
 if __name__ == "__main__":

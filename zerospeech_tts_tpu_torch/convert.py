@@ -9,9 +9,16 @@ denorm -> Griffin-Lim (kernel) -> de-emphasis -> PCM16. f32 throughout.
 Units are written one latent frame per line as space-separated 0/1 ints;
 wavs are 16 kHz PCM16 at ``<result>/<target_speaker>/<utt>.wav``.
 
-Not ported yet (ROADMAP): the h5-corpus paths, units-only dumps, adaptive
-buckets and frame budgets, ``feat="mel"``, the bf16 configs and the
-uint8/mu-law wires.
+Three sources: wavs (``convert_wavs_multi``, ``convert_wav_dir``), the
+port's corpus directory of precomputed lin features (``convert_features_multi``,
+``convert_corpus``; features cross to the device in bf16, the JAX package's
+feature wire), and units only, without synthesis (``encode_units_from_wavs``,
+``encode_units``, ``--units-only``). Buckets are uniform (``bucket_frames``)
+or fitted to the corpus lengths (``fit_buckets``, ``plan_buckets``), and a
+``frame_budget`` lets short buckets take more rows a dispatch.
+
+Not ported yet (ROADMAP): ``feat="mel"``, the bf16 compute configs, the
+uint8/mu-law wires and ``--dispatch-cost-frames``.
 """
 
 from __future__ import annotations
@@ -70,12 +77,126 @@ def _round_rows(k: int, cap: int) -> int:
     return min(bs, int(cap))
 
 
+def _chunk_rows(k: int, cap: int) -> tuple[int, int]:
+    """(executed batch rows, dispatch count) for ``k`` utterances chunked
+    under a bucket cap: full chunks of ``cap`` rows plus one _round_rows
+    tail chunk (Converter._chunk_batch's shapes)."""
+    full, rem = divmod(int(k), int(cap))
+    rows = full * cap
+    n_disp = full
+    if rem:
+        rows += _round_rows(rem, cap)
+        n_disp += 1
+    return rows, n_disp
+
+
+def plan_buckets(
+    frame_lengths,
+    max_buckets: int,
+    quantum: int,
+    min_pad: int = 4,
+    target_overhead: float | None = None,
+    cap_fn=None,
+    dispatch_cost: float = 0.0,
+) -> list[int]:
+    """Pick <= max_buckets bucket edges (multiples of ``quantum``) that
+    minimize total padded frames for the given utterance length multiset
+    (copy of the JAX package's planner).
+
+    ``min_pad``: an utterance sits at its edge exactly or has >= min_pad
+    pad frames (Converter._MIN_PAD), so the executed plan never falls back
+    to an out-of-plan uniform bucket.
+
+    ``target_overhead``: return the SMALLEST number of edges whose planned
+    padding overhead (padded/true - 1) is <= target, or the best plan
+    within ``max_buckets`` when no k meets it.
+
+    ``cap_fn`` (bucket frames -> batch-row cap) switches the objective from
+    padded frames to EXECUTED rows*frames: dummy rows run the whole path
+    (the vocoder does not mask), so each candidate bucket is charged its
+    chunked cost (full cap-row chunks + one rounded tail) plus
+    ``dispatch_cost`` frame-rows a dispatch; more edges can then hurt and
+    every k is searched.
+
+    Exact DP (1-D clustering) over the distinct quantized lengths:
+    dp[j][k] = least cost covering groups 1..j with k edges, edge k at
+    group j's value. O(m^2 * max_buckets) for m distinct lengths.
+    """
+    if int(max_buckets) < 1:
+        raise ValueError(f"adaptive bucket count must be >= 1, got {max_buckets}")
+    ts = np.asarray(frame_lengths, np.int64)
+    if ts.size == 0:
+        return []
+    q = int(quantum)
+    quant = -(-ts // q) * q  # ceil to quantum
+    while True:  # bump 1..min_pad-1 pads up a quantum (loops only if q < min_pad)
+        short = (quant > ts) & (quant - ts < int(min_pad))
+        if not short.any():
+            break
+        quant = np.where(short, quant + q, quant)
+    vals, inv = np.unique(quant, return_inverse=True)
+    m = len(vals)
+    cnt = np.bincount(inv, minlength=m).astype(np.int64)
+    tsum = np.bincount(inv, weights=ts.astype(np.float64), minlength=m)
+    ccum = np.concatenate([[0], np.cumsum(cnt)])
+    scum = np.concatenate([[0.0], np.cumsum(tsum)])
+    k_max = min(int(max_buckets), m)
+    INF = float("inf")
+    dp = np.full((m + 1, k_max + 1), INF)
+    prev = np.zeros((m + 1, k_max + 1), np.int64)
+    dp[0, 0] = 0.0
+    caps = None
+    if cap_fn is not None:
+        caps = [max(1, int(cap_fn(int(v)))) for v in vals]
+    for k in range(1, k_max + 1):
+        for j in range(1, m + 1):
+            # groups i+1..j all pad to vals[j-1]
+            best, arg = INF, 0
+            for i in range(k - 1, j):
+                if dp[i, k - 1] == INF:
+                    continue
+                count = ccum[j] - ccum[i]
+                if caps is None:
+                    seg = vals[j - 1] * count - (scum[j] - scum[i])
+                else:
+                    rows, n_disp = _chunk_rows(count, caps[j - 1])
+                    seg = (rows * vals[j - 1] - (scum[j] - scum[i])
+                           + dispatch_cost * n_disp)
+                c = dp[i, k - 1] + seg
+                if c < best:
+                    best, arg = c, i
+            dp[j, k] = best
+            prev[j, k] = arg
+    if target_overhead is not None:
+        total_true = float(scum[m])
+        k_best = 0
+        for k in range(1, k_max + 1):
+            if dp[m, k] <= target_overhead * total_true:
+                k_best = k
+                break
+        if not k_best:  # target unreachable within max_buckets: best effort
+            k_best = int(np.argmin(dp[m, 1:])) + 1
+    else:
+        # frames mode: fewer edges never help; executed mode: they can
+        k_best = int(np.argmin(dp[m, 1:])) + 1
+    edges, j = [], m
+    for k in range(k_best, 0, -1):
+        edges.append(int(vals[j - 1]))
+        j = int(prev[j, k])
+    return sorted(edges)
+
+
 class Converter:
-    """Encoder + decoder on ``device``, converting PCM batches per padded
-    length bucket. ``enc_state``/``dec_state`` are the port's state dicts
-    (``params.from_flax``). On ``device="cuda"`` (the default) it runs the
-    hand-written kernels and never falls back to the CPU; ``device="cpu"``
-    runs their plain versions."""
+    """Encoder + decoder on ``device``, converting PCM or feature batches
+    per padded length bucket. ``enc_state``/``dec_state`` are the port's
+    state dicts (``params.from_flax``). On ``device="cuda"`` (the default)
+    it runs the hand-written kernels and never falls back to the CPU;
+    ``device="cpu"`` runs their plain versions.
+
+    ``frame_budget`` (rows*frames a dispatch): short buckets take more
+    utterances a dispatch (_bucket_cap: the largest allowed row count
+    within the budget, never below batch_size, at most 128 rows). None
+    keeps the flat batch_size cap."""
 
     def __init__(
         self,
@@ -86,6 +207,7 @@ class Converter:
         gl_iters: int | None = None,
         batch_size: int = 8,
         bucket_frames: int = 64,
+        frame_budget: int | None = None,
         stats=None,  # SpeakerStats when hps.speaker_norm (z-norm in/out)
         device: str | torch.device = "cuda",
     ):
@@ -97,6 +219,8 @@ class Converter:
         self.gl_iters = gl_iters if gl_iters is not None else acfg.gl_iters
         self.batch_size = batch_size
         self.bucket_frames = bucket_frames
+        self.frame_budget = frame_budget
+        self.bucket_edges: list[int] | None = None  # set by fit_buckets()
         self.encoder = Encoder(hps)
         self.decoder = Decoder(hps)
         self.encoder.load_state_dict(enc_state)
@@ -113,12 +237,77 @@ class Converter:
     _MIN_PAD = 4
 
     def _bucket_of(self, t: int) -> int:
-        """Padded frame count for a true frame count ``t``: ceil to
-        bucket_frames, bumped a bucket when that leaves 1..3 pad frames."""
+        """Padded frame count for a true frame count ``t``: the smallest
+        fitted edge >= t when fit_buckets() ran, else ceil to
+        bucket_frames; an edge leaving 1..3 pad frames is passed over (a
+        uniform bucket is bumped one up), so padding is 0 or >= _MIN_PAD."""
+        if self.bucket_edges:
+            edges = self.bucket_edges
+            j = int(np.searchsorted(np.asarray(edges), t))
+            while j < len(edges):
+                if edges[j] == t or edges[j] - t >= self._MIN_PAD:
+                    return edges[j]
+                j += 1
+            # longer than anything fitted: fall back to uniform quantization
         tb = -(-t // self.bucket_frames) * self.bucket_frames
         if 0 < tb - t < self._MIN_PAD:
             tb += self.bucket_frames
         return tb
+
+    def fit_buckets(
+        self, frame_lengths, max_buckets: int, target_overhead: float | None = None,
+        cost_model: str = "frames",
+    ) -> list[int]:
+        """Fit at most ``max_buckets`` edges (multiples of bucket_frames) to
+        the utterances' true frame counts (plan_buckets). ``cost_model``:
+        ``"frames"`` minimizes padded frames; ``"executed"`` the rows*frames
+        the dispatches run under this Converter's chunking (tail rounding,
+        frame-budget caps)."""
+        if cost_model not in ("frames", "executed"):
+            raise ValueError(f"cost_model must be frames|executed, got {cost_model!r}")
+        self.bucket_edges = plan_buckets(
+            frame_lengths, max_buckets, self.bucket_frames,
+            min_pad=self._MIN_PAD, target_overhead=target_overhead,
+            cap_fn=self._bucket_cap if cost_model == "executed" else None,
+        )
+        return self.bucket_edges
+
+    def _bucket_cap(self, tb: int) -> int:
+        """Batch cap for a bucket of ``tb`` frames: batch_size, or with a
+        frame_budget the largest allowed row count (_round_rows' set) whose
+        rows*frames stays within it (never below batch_size, <= 128)."""
+        if not self.frame_budget:
+            return self.batch_size
+        cap = 1
+        for s in (2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128):
+            if s * tb <= self.frame_budget:
+                cap = s
+        return max(cap, self.batch_size)
+
+    def _chunk_batch(self, k: int, cap: int | None = None) -> int:
+        """Batch rows for a chunk of ``k`` utterances: the smallest allowed
+        row count >= k (_round_rows), capped at the bucket's cap."""
+        return _round_rows(k, cap or self.batch_size)
+
+    def _pad_frames(self, feats: np.ndarray) -> np.ndarray:
+        t = feats.shape[0]
+        tb = self._bucket_of(t)
+        if tb > t:
+            feats = np.pad(feats, ((0, tb - t), (0, 0)))
+        return feats
+
+    def _dispatches(self, frames: list[int], sizes: list[int]):
+        """(bucket frames, utterance indices, batch rows) of each dispatch:
+        utterances longest ``sizes`` first (stable), grouped by bucket and
+        chunked by the bucket's cap."""
+        buckets: dict[int, list[int]] = {}
+        for i in np.argsort([-s for s in sizes], kind="stable"):
+            buckets.setdefault(self._bucket_of(int(frames[i])), []).append(int(i))
+        for tb, idxs in buckets.items():
+            cap = self._bucket_cap(tb)
+            for c0 in range(0, len(idxs), cap):
+                chunk = idxs[c0 : c0 + cap]
+                yield tb, chunk, self._chunk_batch(len(chunk), cap)
 
     # ---------------------------------------------------------------- core
 
@@ -150,15 +339,122 @@ class Converter:
         pcm = torch.clamp(wav * 32767.0, -32768.0, 32767.0).to(torch.int16)
         return units, pcm.reshape(bsz, n_tgt, -1).transpose(0, 1)
 
-    def _wav_batch(self, pcm, spk, src_mean, src_std, tgt_mean, tgt_std, slens):
-        """int16 PCM [B, n_samp] -> frontend -> source z-norm -> core.
-        ``slens`` ([B] true sample counts) gives exact tail reflection in
-        the frontend and the true frame counts downstream."""
+    def _encode(self, x, tlens):
+        """Normalised features [B, T, F] -> units [B, T/ds, emb] int32."""
+        return unit_bits(self.encoder(x, lengths=tlens), self.hps.enc_mode)
+
+    def _wav_features(self, pcm, src_mean, src_std, slens):
+        """int16 PCM [B, n_samp] -> frontend -> source z-norm: (features
+        [B, T, F], true frame counts [B]). ``slens`` ([B] true sample
+        counts) gives exact tail reflection in the frontend."""
         y = pcm.to(torch.float32) * (1.0 / 32768.0)  # load_wav convention
         _, mag = dsp_audio.wav_to_features(y, self.acfg, length=slens)
         x = (mag - src_mean[:, None, :]) / src_std[:, None, :]
-        tlens = 1 + slens // self.acfg.hop_length
-        return self._convert_core(x, spk, tgt_mean, tgt_std, tlens)
+        return x, 1 + slens // self.acfg.hop_length
+
+    def _src_stats(self, n: int, src_speakers):
+        """Source z-norm [n, F] mean/std: the speakers' statistics
+        ('__global__' when not given), or identity without stats."""
+        if self.stats is None:
+            return (np.zeros((n, self.hps.n_feat), np.float32),
+                    np.ones((n, self.hps.n_feat), np.float32))
+        return self.stats.arrays_for(src_speakers or ["__global__"] * n)
+
+    def _tgt_stats(self, spk_ids, tgt_names):
+        """Target denorm [n_tgt, F] mean/std on the device."""
+        if self.stats is None:
+            m = np.zeros((len(spk_ids), self.hps.n_feat), np.float32)
+            s = np.ones((len(spk_ids), self.hps.n_feat), np.float32)
+        else:
+            m, s = self.stats.arrays_for(tgt_names)
+        return torch.from_numpy(m).to(self.device), torch.from_numpy(s).to(self.device)
+
+    def _pcm_chunks(self, wavs, s_mean, s_std):
+        """Per dispatch of the trimmed float ``wavs``: (utterance indices,
+        batch rows, device features [rows, tb, F], true frame counts).
+        Dummy rows are silent and act full-length."""
+        acfg, hps, dev = self.acfg, self.hps, self.device
+        frames = [dsp_audio.n_frames_for(len(w), acfg) for w in wavs]
+        for tb, chunk, bs_c in self._dispatches(frames, [len(w) for w in wavs]):
+            n_samp = tb * acfg.hop_length - 1  # longest signal with tb frames
+            pcm = np.zeros((bs_c, n_samp), np.int16)
+            sm = np.zeros((bs_c, hps.n_feat), np.float32)
+            ss = np.ones((bs_c, hps.n_feat), np.float32)
+            sl = np.full(bs_c, n_samp, np.int64)
+            for j, i in enumerate(chunk):
+                w = np.clip(np.rint(wavs[i] * 32768.0), -32768, 32767).astype(np.int16)
+                pcm[j, : len(w)] = w
+                sm[j], ss[j] = s_mean[i], s_std[i]
+                sl[j] = len(w)
+            x, tlens = self._wav_features(
+                torch.from_numpy(pcm).to(dev), torch.from_numpy(sm).to(dev),
+                torch.from_numpy(ss).to(dev), torch.from_numpy(sl).to(dev),
+            )
+            yield chunk, bs_c, x, tlens
+
+    def _feature_chunks(self, feats_list):
+        """Per dispatch of normalised [T_i, F] features: (utterance indices,
+        batch rows, device features [rows, tb, F], true frame counts).
+        Features cross to the device in bf16 (the JAX package's feature
+        wire); dummy rows are zeros at full length."""
+        frames = [f.shape[0] for f in feats_list]
+        for tb, chunk, bs_c in self._dispatches(frames, frames):
+            x = np.zeros((bs_c, tb, self.hps.n_feat), np.float32)
+            tl = np.full(bs_c, tb, np.int64)
+            for j, i in enumerate(chunk):
+                x[j] = self._pad_frames(feats_list[i])
+                tl[j] = frames[i]
+            x_d = torch.from_numpy(x).to(torch.bfloat16).to(self.device).to(torch.float32)
+            yield chunk, bs_c, x_d, torch.from_numpy(tl).to(self.device)
+
+    def _normalized(self, feats_list, src_speakers):
+        """Features z-scored with each source speaker's statistics."""
+        if self.stats is None:
+            return [np.asarray(f, np.float32) for f in feats_list]
+        return [self.stats.normalize(f, s) for f, s in zip(feats_list, src_speakers)]
+
+    def _run_conversion(self, chunks, n, spk_ids, tgt_names, t_true):
+        """Launch the whole path for every chunk first, then read back:
+        (units_list, wavs_per_target) trimmed to each utterance's
+        ``t_true`` frames."""
+        if self.stats is not None and tgt_names is None:
+            raise ValueError(
+                "speaker_norm is on (Converter has stats) but tgt_names was not given — "
+                "conversion would denormalize with the WRONG (global) statistics. Pass "
+                "per-target names, or build the Converter with stats=None to opt out."
+            )
+        t_mean, t_std = self._tgt_stats(spk_ids, tgt_names)
+        spk_arr = np.asarray(spk_ids, np.int64)[:, None]
+        inflight = []
+        for chunk, bs_c, x, tlens in chunks:
+            spk = torch.from_numpy(np.tile(spk_arr, (1, bs_c))).to(self.device)
+            inflight.append((chunk, *self._convert_core(x, spk, t_mean, t_std, tlens)))
+        ds, hop = self.hps.downsample, self.acfg.hop_length
+        units_out: list = [None] * n
+        wavs_out: list[list] = [[None] * n for _ in spk_ids]
+        for chunk, units_d, pcm_d in inflight:
+            units, pcm = units_d.cpu().numpy(), pcm_d.cpu().numpy()  # pcm: [n_tgt, B, n]
+            for j, i in enumerate(chunk):
+                units_out[i] = units[j][: -(-t_true[i] // ds)].astype(np.int32)
+                for k in range(len(spk_ids)):
+                    wavs_out[k][i] = pcm[k, j][: max(t_true[i] - 1, 1) * hop]
+        return units_out, wavs_out
+
+    def _run_encoding(self, chunks, n, t_true):
+        inflight = [(chunk, self._encode(x, tlens)) for chunk, _, x, tlens in chunks]
+        ds = self.hps.downsample
+        out: list = [None] * n
+        for chunk, units_d in inflight:
+            units = units_d.cpu().numpy()
+            for j, i in enumerate(chunk):
+                out[i] = units[j][: -(-t_true[i] // ds)].astype(np.int32)
+        return out
+
+    def _trimmed(self, wavs, trim: bool):
+        wavs = [np.asarray(w, np.float32) for w in wavs]
+        return [trim_silence(w, self.acfg.top_db) for w in wavs] if trim else wavs
+
+    # ------------------------------------------------------------- entries
 
     @torch.inference_mode()
     def convert_wavs_multi(
@@ -175,68 +471,75 @@ class Converter:
         is utterance i's {0,1} int32 [ceil(t/ds), emb] array,
         wavs_per_target[k][i] its int16 PCM for target k. With speaker_norm
         on, sources default to the '__global__' statistics."""
-        acfg, hps, dev = self.acfg, self.hps, self.device
-        wavs = [np.asarray(w, np.float32) for w in wavs]
-        if trim:
-            wavs = [trim_silence(w, acfg.top_db) for w in wavs]
-        n = len(wavs)
-        if self.stats is not None:
-            if tgt_names is None:
-                raise ValueError(
-                    "speaker_norm is on (Converter has stats) but tgt_names was "
-                    "not given — conversion would denormalize with the WRONG "
-                    "(global) statistics. Pass per-target names, or build the "
-                    "Converter with stats=None to opt out."
-                )
-            s_mean, s_std = self.stats.arrays_for(src_speakers or ["__global__"] * n)
-            t_mean, t_std = self.stats.arrays_for(tgt_names)
-        else:
-            s_mean = np.zeros((n, hps.n_feat), np.float32)
-            s_std = np.ones((n, hps.n_feat), np.float32)
-            t_mean = np.zeros((len(spk_ids), hps.n_feat), np.float32)
-            t_std = np.ones((len(spk_ids), hps.n_feat), np.float32)
-        t_mean_d, t_std_d = torch.from_numpy(t_mean).to(dev), torch.from_numpy(t_std).to(dev)
+        wavs = self._trimmed(wavs, trim)
+        s_mean, s_std = self._src_stats(len(wavs), src_speakers)
+        t_true = [dsp_audio.n_frames_for(len(w), self.acfg) for w in wavs]
+        return self._run_conversion(self._pcm_chunks(wavs, s_mean, s_std), len(wavs), spk_ids,
+                                    tgt_names, t_true)
 
-        units_out: list = [None] * n
-        wavs_out: list[list] = [[None] * n for _ in spk_ids]
-        buckets: dict[int, list[int]] = {}
-        for i in np.argsort([-len(w) for w in wavs], kind="stable"):
-            t = dsp_audio.n_frames_for(len(wavs[int(i)]), acfg)
-            buckets.setdefault(self._bucket_of(t), []).append(int(i))
+    @torch.inference_mode()
+    def encode_units_from_wavs(
+        self,
+        wavs: list[np.ndarray],
+        src_speakers: list[str] | None = None,
+        trim: bool = True,
+    ) -> list[np.ndarray]:
+        """Units straight from wavs, no synthesis (ref enc_only x --test,
+        the bitrate-only submission): frontend -> source z-norm ->
+        encoder -> MBV bits, bucketed and chunked as convert_wavs_multi,
+        so its units are those of the full conversion. Sources default to
+        the '__global__' statistics."""
+        wavs = self._trimmed(wavs, trim)
+        s_mean, s_std = self._src_stats(len(wavs), src_speakers)
+        t_true = [dsp_audio.n_frames_for(len(w), self.acfg) for w in wavs]
+        return self._run_encoding(self._pcm_chunks(wavs, s_mean, s_std), len(wavs), t_true)
 
-        ds, hop = hps.downsample, acfg.hop_length
-        spk_arr = np.asarray(spk_ids, np.int64)[:, None]
-        inflight = []  # launch every chunk first; reading back syncs
-        for tb, idxs in buckets.items():
-            n_samp = tb * hop - 1  # longest signal with tb frames
-            for c0 in range(0, len(idxs), self.batch_size):
-                chunk = idxs[c0 : c0 + self.batch_size]
-                bs_c = _round_rows(len(chunk), self.batch_size)
-                pcm = np.zeros((bs_c, n_samp), np.int16)
-                sm = np.zeros((bs_c, hps.n_feat), np.float32)
-                ss = np.ones((bs_c, hps.n_feat), np.float32)
-                sl = np.full(bs_c, n_samp, np.int64)  # dummy rows act full-length
-                for j, i in enumerate(chunk):
-                    w = np.clip(np.rint(wavs[i] * 32768.0), -32768, 32767).astype(np.int16)
-                    pcm[j, : len(w)] = w
-                    sm[j], ss[j] = s_mean[i], s_std[i]
-                    sl[j] = len(w)
-                units, pcm_out = self._wav_batch(
-                    torch.from_numpy(pcm).to(dev),
-                    torch.from_numpy(np.tile(spk_arr, (1, bs_c))).to(dev),
-                    torch.from_numpy(sm).to(dev), torch.from_numpy(ss).to(dev),
-                    t_mean_d, t_std_d, torch.from_numpy(sl).to(dev),
-                )
-                inflight.append((chunk, units, pcm_out))
+    @torch.inference_mode()
+    def encode_units(self, feats_list: list[np.ndarray], src_speakers=None) -> list[np.ndarray]:
+        """Units for [T_i, n_feat] lin features without synthesis (ref
+        enc_only). Raises when stats are on and ``src_speakers`` is
+        missing. Chunks follow _chunk_batch, as convert_features_multi's
+        do; the JAX package pads every chunk here to batch_size, which
+        changes no unit (a row's units do not depend on the other rows)."""
+        if self.stats is not None and src_speakers is None:
+            raise ValueError(
+                "speaker_norm is on (Converter has stats) but src_speakers was not given — "
+                "units would be computed from features normalized with the WRONG (global) "
+                "statistics. Pass the source speaker per utterance, or build the Converter "
+                "with stats=None to opt out."
+            )
+        feats_list = self._normalized(feats_list, src_speakers)
+        t_true = [f.shape[0] for f in feats_list]
+        return self._run_encoding(self._feature_chunks(feats_list), len(feats_list), t_true)
 
-        for chunk, units_d, pcm_d in inflight:
-            units, pcm = units_d.cpu().numpy(), pcm_d.cpu().numpy()  # pcm: [n_tgt, B, n]
-            for j, i in enumerate(chunk):
-                t_true = dsp_audio.n_frames_for(len(wavs[i]), acfg)
-                units_out[i] = units[j][: -(-t_true // ds)].astype(np.int32)
-                for k in range(len(spk_ids)):
-                    wavs_out[k][i] = pcm[k, j][: max(t_true - 1, 1) * hop]
-        return units_out, wavs_out
+    @torch.inference_mode()
+    def convert_features_multi(
+        self,
+        feats_list: list[np.ndarray],
+        spk_ids: list[int],
+        tgt_names: list[str] | None = None,
+        src_speakers: list[str] | None = None,
+    ):
+        """Convert [T_i, n_feat] lin features for several targets in one
+        pass (same returns as convert_wavs_multi). With stats on, both
+        ``src_speakers`` and ``tgt_names`` are required."""
+        if self.stats is not None and (src_speakers is None or tgt_names is None):
+            raise ValueError(
+                "speaker_norm is on (Converter has stats) but "
+                f"{'src_speakers' if src_speakers is None else 'tgt_names'} was not given — "
+                "conversion would (de)normalize with the WRONG (global) statistics. Pass "
+                "per-utterance source speakers and per-target names, or build the Converter "
+                "with stats=None to opt out."
+            )
+        feats_list = self._normalized(feats_list, src_speakers)
+        t_true = [f.shape[0] for f in feats_list]
+        return self._run_conversion(self._feature_chunks(feats_list), len(feats_list), spk_ids,
+                                    tgt_names, t_true)
+
+    def convert_features(self, feats_list: list[np.ndarray], spk_id: int):
+        """Single-target convenience wrapper: [(units_i, wav_i)]."""
+        units, wavs = self.convert_features_multi(feats_list, [spk_id])
+        return list(zip(units, wavs[0]))
 
     def convert_wav(self, wav: np.ndarray, spk_id: int, trim: bool = True, tgt_name=None):
         """Single-utterance conversion (ref --test_single); the source is
@@ -252,6 +555,121 @@ class Converter:
         return units[0], wavs[0][0]
 
 
+def _bucket_stats(converter: Converter, true_frames) -> dict:
+    """The bucket plan in effect for these utterance lengths: its edges,
+    padding overhead (padded/true - 1), executed overhead (rows*frames of
+    the dispatches, tail rounding included, /true - 1) and dispatch count."""
+    padded = [converter._bucket_of(t) for t in true_frames]
+    by_bucket: dict[int, int] = {}
+    for tb in padded:
+        by_bucket[tb] = by_bucket.get(tb, 0) + 1
+    rows_frames, n_disp = 0, 0
+    for tb, count in by_bucket.items():
+        rows, nd = _chunk_rows(count, converter._bucket_cap(tb))
+        rows_frames += rows * tb
+        n_disp += nd
+    true_total = max(sum(true_frames), 1)
+    return {
+        "bucket_edges": sorted(by_bucket),
+        "padding_overhead": round(sum(padded) / true_total - 1, 4),
+        "executed_overhead": round(rows_frames / true_total - 1, 4),
+        "n_dispatches": n_disp,
+    }
+
+
+def _convert_planned(
+    converter: Converter,
+    names: list[str],
+    true_frames: list[int],
+    result_dir: str | Path,
+    target_speakers: dict[str, int],
+    encode,
+    convert,
+    sr: int,
+    units_only: bool,
+    progress,
+    adaptive_buckets: int | None,
+    bucket_overhead_target: float | None,
+    bucket_cost_model: str,
+) -> dict:
+    """The shared body of convert_corpus and convert_wav_dir: fit
+    ``adaptive_buckets`` edges to ``true_frames`` for this call only, run
+    ``encode()`` (units only) or ``convert(spk_ids, tgt_names)``, write
+    ``<result>/units/<utt>.txt`` per utterance and, unless units only,
+    ``<result>/<target>/<utt>.wav`` per target. Returns the counts and the
+    plan's _bucket_stats."""
+    result_dir = Path(result_dir)
+    tgt_names = list(target_speakers)
+    prev_edges = converter.bucket_edges  # fitted edges are scoped to this corpus
+    try:
+        if adaptive_buckets:
+            converter.fit_buckets(true_frames, adaptive_buckets, target_overhead=bucket_overhead_target,
+                                  cost_model=bucket_cost_model)
+        bucket_stats = _bucket_stats(converter, true_frames)
+        if units_only:
+            units_list, wavs_per_tgt = encode(), ()
+        else:
+            units_list, wavs_per_tgt = convert([target_speakers[t] for t in tgt_names], tgt_names)
+    finally:
+        converter.bucket_edges = prev_edges
+    for utt, units in zip(names, units_list):
+        write_units(result_dir / "units" / f"{utt}.txt", units)
+    n_wav = 0
+    for tgt_name, wavs in zip(tgt_names, wavs_per_tgt):
+        for utt, wav in zip(names, wavs):
+            save_wav(result_dir / tgt_name / f"{utt}.wav", wav, sr)
+            n_wav += 1
+            if progress:
+                progress(tgt_name, utt)
+    return {"n_utterances": len(names), "n_wavs": n_wav, "result_dir": str(result_dir),
+            **bucket_stats}
+
+
+def load_corpus_split(dataset_path: str | Path, split: str = "test", limit: int | None = None):
+    """(features, utterance names, speakers) of a corpus split in
+    (speaker, utterance) name order, the order in which the JAX package
+    walks its h5 groups, so ``limit`` picks the same utterances."""
+    from zerospeech_tts_tpu_torch.data.corpus import load_split
+
+    arena, index = load_split(dataset_path, split, "lin")
+    order = sorted(range(len(index["names"])), key=lambda i: (index["speakers"][i], index["names"][i]))
+    if limit:
+        order = order[:limit]
+    feats = [np.asarray(arena[index["starts"][i] : index["starts"][i] + index["lengths"][i]])
+             for i in order]
+    return feats, [index["names"][i] for i in order], [index["speakers"][i] for i in order]
+
+
+def convert_corpus(
+    converter: Converter,
+    dataset_path: str | Path,
+    result_dir: str | Path,
+    target_speakers: dict[str, int],
+    split: str = "test",
+    sr: int = 16000,
+    limit: int | None = None,
+    units_only: bool = False,
+    progress=None,
+    adaptive_buckets: int | None = None,
+    bucket_overhead_target: float | None = None,
+    bucket_cost_model: str = "frames",
+) -> dict:
+    """Corpus conversion and unit extraction from the lin features of a
+    port corpus directory (ref --test): ``<result>/units/<utt>.txt`` once
+    per utterance and ``<result>/<target>/<utt>.wav`` per target (units
+    only: no wavs). Sources are normalised with their own speaker's
+    statistics. ``adaptive_buckets=K`` fits <= K edges to these lengths
+    for this call only. The result holds the plan's _bucket_stats."""
+    feats, names, srcs = load_corpus_split(dataset_path, split, limit)
+    return _convert_planned(
+        converter, names, [f.shape[0] for f in feats], result_dir, target_speakers,
+        lambda: converter.encode_units(feats, src_speakers=srcs),
+        lambda spk_ids, tgt_names: converter.convert_features_multi(
+            feats, spk_ids, tgt_names=tgt_names, src_speakers=srcs),
+        sr, units_only, progress, adaptive_buckets, bucket_overhead_target, bucket_cost_model,
+    )
+
+
 def convert_wav_dir(
     converter: Converter,
     wav_dir: str | Path,
@@ -259,37 +677,35 @@ def convert_wav_dir(
     target_speakers: dict[str, int],
     sr: int = 16000,
     limit: int | None = None,
+    units_only: bool = False,
     progress=None,
+    adaptive_buckets: int | None = None,
+    bucket_overhead_target: float | None = None,
+    bucket_cost_model: str = "frames",
 ) -> dict:
     """Corpus conversion straight from a directory of wavs (ref --test
     iterates english/test/*.wav): ``<result>/units/<utt>.txt`` once per
-    utterance and ``<result>/<target>/<utt>.wav`` per target. Source
-    speakers are unknown for a flat directory, so speaker_norm uses the
-    global statistics."""
-    result_dir = Path(result_dir)
+    utterance and ``<result>/<target>/<utt>.wav`` per target (units only:
+    no wavs). Source speakers are unknown for a flat directory, so
+    speaker_norm uses the global statistics. ``adaptive_buckets=K`` fits
+    <= K edges to the trimmed lengths for this call only. The result holds
+    the plan's _bucket_stats."""
     wav_paths = sorted(Path(wav_dir).glob("*.wav"))
     if limit:
         wav_paths = wav_paths[:limit]
     if not wav_paths:
         raise ValueError(f"no .wav files in {wav_dir}")
-    ys = [load_wav(p, sr) for p in wav_paths]
-    names = [p.stem for p in wav_paths]
-    tgt_names = list(target_speakers)
-    units_list, wavs_per_tgt = converter.convert_wavs_multi(
-        ys,
-        [target_speakers[t] for t in tgt_names],
-        tgt_names=tgt_names if converter.stats is not None else None,
+    # the plan is made on the lengths the path will see: trim here once and
+    # skip the (idempotent) trim inside the conversion call
+    ys = [trim_silence(load_wav(p, sr), converter.acfg.top_db) for p in wav_paths]
+    return _convert_planned(
+        converter, [p.stem for p in wav_paths], [dsp_audio.n_frames_for(len(y), converter.acfg) for y in ys],
+        result_dir, target_speakers,
+        lambda: converter.encode_units_from_wavs(ys, trim=False),
+        lambda spk_ids, tgt_names: converter.convert_wavs_multi(
+            ys, spk_ids, tgt_names=tgt_names if converter.stats is not None else None, trim=False),
+        sr, units_only, progress, adaptive_buckets, bucket_overhead_target, bucket_cost_model,
     )
-    for utt, units in zip(names, units_list):
-        write_units(result_dir / "units" / f"{utt}.txt", units)
-    n_wav = 0
-    for k, tgt_name in enumerate(tgt_names):
-        for utt, wav in zip(names, wavs_per_tgt[k]):
-            save_wav(result_dir / tgt_name / f"{utt}.wav", wav, sr)
-            n_wav += 1
-            if progress:
-                progress(tgt_name, utt)
-    return {"n_utterances": len(names), "n_wavs": n_wav, "result_dir": str(result_dir)}
 
 
 def convert_single(

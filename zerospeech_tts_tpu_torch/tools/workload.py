@@ -7,7 +7,8 @@ Conversion: 8 synthetic "voiced" wavs of 1.5-6.4 s converted to V001 and
 V002 by a bundle at flagship width (``hps/zerospeech.json``) whose weights
 and speaker statistics come from a seed. Training: a corpus of such wavs
 in the ZeroSpeech layout, 6 speakers (V001 and V002 among them) x 4
-utterances of 3-6 s.
+utterances of 3-6 s. Corpus conversion: a test split of 4 speakers x 6
+such wavs of 1-8 s plus one of 27 s (over 2,048 frames).
 """
 
 from __future__ import annotations
@@ -155,4 +156,23 @@ def write_train_corpus(out: str | Path, seed: int = 0, n_utts: int = 4) -> Path:
             n = int(rng.uniform(3.0, 6.0) * 16000)
             save_wav(root / "train" / sub / f"{spk}_{i}.wav", speechlike(n, (7 * si + i + seed) % 24), 16000)
     save_wav(root / "test" / "T001_0.wav", speechlike(52000, 1000 + seed), 16000)
+    return root
+
+
+TEST_SPEAKERS = ("T001", "T002", "T003", "T004")
+LONG_TEST_SAMPLES = 27 * 16000  # 2,161 frames: Griffin-Lim past 2,048 frames
+
+
+def write_test_corpus(out: str | Path, seed: int = 0, n_utts: int = 6) -> Path:
+    """``<out>/corpus/test/<spk>_<i>.wav``: seeded speech-like wavs of 1-8 s,
+    ``n_utts`` for each of TEST_SPEAKERS, plus T005_0 of 27 s."""
+    from zerospeech_tts_tpu_torch.dsp.wavio import save_wav
+
+    root = Path(out) / "corpus"
+    rng = np.random.default_rng(seed)
+    for si, spk in enumerate(TEST_SPEAKERS):
+        for i in range(n_utts):
+            n = int(rng.uniform(1.0, 8.0) * 16000)
+            save_wav(root / "test" / f"{spk}_{i}.wav", speechlike(n, (5 * si + i + seed) % 24), 16000)
+    save_wav(root / "test" / "T005_0.wav", speechlike(LONG_TEST_SAMPLES, 23), 16000)
     return root
