@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 1. Refuses to run without a CUDA card (or outside a checkout of the repo).
-2. Builds the four hand-written kernels from csrc/ with nvcc (sm_90a), all
-   at once.
+2. Builds the hand-written kernels from their four csrc/ sources with nvcc
+   (sm_90a), all at once, and prints kernel 2's spread and its widest H in
+   f32 and in bf16.
 3. Holds each kernel against its plain PyTorch version on the card at its
    path's flagship shapes (kernel 1 also on full-scale frames) and times
    both, beside the card's least time for
@@ -13,7 +14,10 @@
    that call's time; holds GRUScan's gradients against cuDNN nn.GRU;
    prints kernel 2's spread (column x batch groups, shared memory) at the
    paths' batch sizes and its time a step at B=16 for T=64 and T=512 (the
-   per-step chain apart from the launch's fixed cost).
+   per-step chain apart from the launch's fixed cost); kernel 2's bf16 mode
+   at the test shapes and its widest H, within 2^-8 of its plain version
+   and far nearer it than a control that rounds the state to bf16 between
+   steps, timed beside its bound and cuDNN nn.GRU forward in bf16.
 4. Conversion path: converts a seeded 8-wav, 2-target corpus at flagship
    width (hps/zerospeech.json, random weights from a seed, GL-100) through
    the port's CLI, counting kernel launches and keeping each kernel's
@@ -24,6 +28,11 @@
    against its plain version (and times the same recurrence as a loop of
    torch.fft calls, a yardstick), and holds the card's conversion of one
    utterance against the plain CPU path.
+4b. The same conversion with --bf16 and with --bf16 --enc-f32 (units
+   against the exact route: > 0.9 and >= 0.999; kernel 2 in both modes and
+   kernel 4 held at every captured input), then the serve verb in a thread
+   on 127.0.0.1 (two bursts of 8 /convert and 4 /units: fewer dispatches
+   than requests, the CLI's units, 16 kHz PCM16, p50/p95 latency).
 5. Corpus path: a seeded test split (4 speakers x 6 wavs of 1-8 s and one
    of 27 s) through the CLI at flagship width with the same bundle:
    preprocess (kernel 1) -> convert from the corpus (a) --units-only, (b)
@@ -48,7 +57,9 @@
    parameter updates and gradients; then one pretrain_AE and one train
    step on the card against the CPU from the same state and the same draws,
    with the CPU replaying the card's hard decisions and few of its own
-   differing.
+   differing. Then a mel run at flagship width (n_feat = 80): preprocess ->
+   train1 -> train2 --data-bf16 -> export --feat mel -> convert, kernel
+   4's lifted magnitudes held against a float64 lift.
 7. Prints the card (nvidia-smi name, power limit), one JSON line with the
    kernels' results (``launches``: the count on the path the kernel's slice
    ported, conversion or training; ``launches_by_path``: each path's own
@@ -77,12 +88,20 @@ SRC = "zerospeech_tts_tpu_torch/csrc"
 REPLACES = {
     "frontend": "zerospeech_tts_tpu/ops/pallas_frontend.py:74",
     "gru": "zerospeech_tts_tpu/ops/pallas_gru.py:84",
+    "gru_bf16": "zerospeech_tts_tpu/ops/pallas_gru.py:84 (bf16 mode)",
     "gru_bwd": "zerospeech_tts_tpu/ops/pallas_gru.py:218",
     "griffin_lim": "zerospeech_tts_tpu/ops/pallas_gl.py:470",
 }
-# H100 SXM peaks: f32 outside the tensor cores, HBM
+# H100 SXM peaks: f32 outside the tensor cores, dense bf16 on them, HBM
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+BF16_ULP = 2.0**-8  # kernel 2's bf16 bar: one bf16 ulp at |y| in [0.5, 1), the GRU's range
+# and its second: mean |kernel - plain| at most this share of mean |control
+# - plain|, the control rounding its state to bf16 between steps (a kernel
+# doing that sits near 1; summation order alone, far below)
+BF16_CONTROL_RATIO = 0.5
+BF16_CONTROL = {}  # where -> the kernel's and the control's distances from the plain version
 
 
 def fail(msg: str) -> None:
@@ -103,12 +122,15 @@ def card_line() -> str:
     return line.splitlines()[0]
 
 
-def bound(flops: float, nbytes: float) -> dict:
-    """The card's least time for the work: the larger of f32 FLOPs at the
-    f32 peak and bytes (each input read once, each output written once) at
-    the memory rate."""
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS) -> dict:
+    """The card's least time for the work: the larger of FLOPs at the peak
+    of their type (f32 unless given) and bytes (each input read once, each
+    output written once) at the memory rate."""
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return dict(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+PEAKS = {"gru_bf16": PEAK_BF16_FLOPS}  # a kernel's operations at their type's peak (f32 otherwise)
 
 
 def rfft_flops(n: int) -> float:
@@ -125,10 +147,12 @@ def rel_l2(a, b) -> float:
     return (torch.linalg.norm(a - b) / torch.linalg.norm(b)).item()
 
 
-# kernel -> (module in ops/, wrapper, plain version): both take the same arguments
+# kernel -> (module in ops/, wrapper, plain version): both take the same
+# arguments; kernel 2's two modes share a wrapper, which dispatches on xw's dtype
 KERNEL_FNS = {
     "frontend": ("frontend", "fused_frontend", "frontend_plain"),
     "gru": ("gru", "gru_scan", "gru_scan_plain"),
+    "gru_bf16": ("gru", "gru_scan", "gru_scan_plain"),
     "gru_bwd": ("gru", "gru_bwd", "gru_bwd_plain"),
     "griffin_lim": ("griffin_lim", "griffin_lim", "griffin_lim_plain"),
 }
@@ -147,7 +171,8 @@ def capture(names, store: dict):
     """While active, each named kernel wrapper keeps a copy of the inputs
     of its first call with each distinct signature (tensor shapes and the
     other arguments) and counts the calls, in store[name][key] = [args,
-    kwargs, count], then calls through. The wrapper is replaced in every
+    kwargs, count], then calls through; "gru" keeps its bf16 calls under
+    "gru_bf16" (kernel 2's bf16 mode). The wrapper is replaced in every
     module of the port that holds it, and restored on exit."""
     import torch
 
@@ -162,7 +187,9 @@ def capture(names, store: dict):
         orig = kernel_fns(name)[1]
         calls = store.setdefault(name, {})
 
-        def wrapper(*args, _orig=orig, _calls=calls, **kw):
+        def wrapper(*args, _orig=orig, _calls=calls, _name=name, **kw):
+            if _name == "gru" and args[0].dtype == torch.bfloat16:
+                _calls = store.setdefault("gru_bf16", {})
             key = tuple(sig(a) for a in args) + tuple((k, sig(v)) for k, v in sorted(kw.items()))
             if key not in _calls:
                 _calls[key] = [[keep(a) for a in args], {k: keep(v) for k, v in kw.items()}, 0]
@@ -196,13 +223,13 @@ def work(name: str, args, kw) -> tuple[float, float]:
         # a frame: window, rfft, |.|, mel product over the nonzeros, both dB-norms
         fl = b * t * (cfg.win_length + rfft_flops(cfg.n_fft) + 4 * nf + 2 * nnz + 5 * (nf + nm))
         return fl, 4 * (ypad.numel() + nnz + cfg.win_length + b * t * (nf + nm))
-    if name == "gru":
+    if name in ("gru", "gru_bf16"):  # bf16: 2-byte xw, wh, bh and ys (the f32 state is scratch)
         xw, wh, bh = args[:3]
         lengths = args[3] if len(args) > 3 else kw.get("lengths")
         b, t, h3 = xw.shape
         h = h3 // 3
         steps = b * t if lengths is None else int(lengths.sum())  # masked steps only pass the state on
-        return 2 * steps * h * h3, 4 * (b * t * h3 + b * t * h + h * h3 + h3)
+        return 2 * steps * h * h3, xw.element_size() * (b * t * h3 + b * t * h + h * h3 + h3)
     if name == "gru_bwd":
         b, t, h3 = args[0].shape
         h = h3 // 3
@@ -232,7 +259,7 @@ def path_times(name: str, calls: dict) -> dict:
     for args, kw, count in calls.values():
         k_ms = cuda_ms(lambda: kfn(*args, **kw), 3)
         p_ms = cuda_ms(lambda: pfn(*args, **kw), 1)
-        bnd = bound(*work(name, args, kw))["bound_ms"]
+        bnd = bound(*work(name, args, kw), peak=PEAKS.get(name, PEAK_F32_FLOPS))["bound_ms"]
         tot["ms"] += count * k_ms
         tot["plain_ms"] += count * p_ms
         tot["bound_ms"] += count * bnd
@@ -276,7 +303,16 @@ def hold_path_calls(name: str, calls: dict, where: str) -> float:
     it) through the kernel and its plain version; fails on a bar, returns
     the largest kernel-vs-plain difference (kernel 4: of consistency).
 
-    Kernel 2, and kernel 1's mel: max_abs_err <= 1e-4. Kernel 4: the two
+    Kernel 2, and kernel 1's mel: max_abs_err <= 1e-4; kernel 2 in bf16:
+    within one bf16 ulp at the top of the GRU's range (2^-8; the share of
+    equal elements is printed: the kernel and the plain version sum each
+    product in other f32 orders, and once a state on a bf16 rounding
+    boundary rounds apart for the next product the two drift ~1e-4 apart),
+    and, over all the calls, a mean |kernel - plain| at most
+    BF16_CONTROL_RATIO of the mean |control - plain| of a control that
+    rounds the state to bf16 between steps (tools/workload.py
+    ``gru_scan_bf16_state``), which the one-ulp bar alone does not tell
+    from an f32 state on a short scan. Kernel 4: the two
     signals' consistency with the magnitudes within 1e-3. Kernel 1's
     magnitudes: within 1e-4 of the plain version's, except near the dB
     floor, where the norm's slope (0.087 / m) turns the rounding of any
@@ -288,9 +324,11 @@ def hold_path_calls(name: str, calls: dict, where: str) -> float:
     import torch
 
     from zerospeech_tts_tpu_torch.dsp import audio
+    from zerospeech_tts_tpu_torch.tools.workload import gru_scan_bf16_state
 
     _, kfn, pfn = kernel_fns(name)
     worst = 0.0
+    far = dict(kernel=0.0, control=0.0, equal_kernel=0, equal_control=0, n=0)  # gru_bf16: sums over the calls
     for args, kw, _ in calls.values():
         out_k = kfn(*args, **kw)
         torch.cuda.synchronize()
@@ -303,6 +341,19 @@ def hold_path_calls(name: str, calls: dict, where: str) -> float:
         elif name == "gru":
             err = (out_k - out_p).abs().max().item()
             check(err <= 1e-4, f"{where}: gru at {shape} {kw}: max_abs_err {err} (atol 1e-4)")
+        elif name == "gru_bf16":
+            d = (out_k.float() - out_p.float()).abs()
+            d_c = (gru_scan_bf16_state(*args, **kw).float() - out_p.float()).abs()
+            err, equal = d.max().item(), (d == 0).float().mean().item()
+            print(f"  {where}: gru_bf16 at {shape} {kw}: max_abs_err {err:.3e} (<= 2^-8), {equal:.4%} of the "
+                  f"elements equal; mean |diff| {d.mean().item():.3e}, the bf16-state control's "
+                  f"{d_c.mean().item():.3e} ({(d_c == 0).float().mean().item():.4%} equal)", flush=True)
+            check(out_k.dtype == torch.bfloat16 and err <= BF16_ULP,
+                  f"{where}: gru_bf16 at {shape} {kw}: max_abs_err {err} (<= 2^-8)")
+            for key, dd in (("kernel", d), ("control", d_c)):
+                far[key] += dd.sum().item()
+                far[f"equal_{key}"] += int((dd == 0).sum())
+            far["n"] += d.numel()
         else:
             (mel_k, mag_k), (mel_p, mag_p) = out_k, out_p
             err_mel = (mel_k - mel_p).abs().max().item()
@@ -324,6 +375,17 @@ def hold_path_calls(name: str, calls: dict, where: str) -> float:
                       f"{where}: frontend at {shape}: magnitudes {err} from the plain version's; near floor "
                       f"{bool(near[over].all())}, kernel {e_k} and plain {e_p} from float64")
         worst = max(worst, err)
+    if far["n"]:
+        mean_k, mean_c = far["kernel"] / far["n"], far["control"] / far["n"]
+        BF16_CONTROL[where] = dict(mean_kernel=mean_k, mean_control=mean_c, ratio=mean_k / max(mean_c, 1e-30),
+                                   equal_kernel=far["equal_kernel"] / far["n"],
+                                   equal_control=far["equal_control"] / far["n"], elements=far["n"])
+        print(f"  {where}: gru_bf16 over {len(calls)} inputs: mean |kernel - plain| {mean_k:.3e}, mean "
+              f"|control - plain| {mean_c:.3e} (bf16 state between steps), ratio "
+              f"{BF16_CONTROL[where]['ratio']:.3f} (<= {BF16_CONTROL_RATIO})", flush=True)
+        check(mean_k <= BF16_CONTROL_RATIO * mean_c,
+              f"{where}: gru_bf16 is {mean_k} from the plain version on average, the bf16-state control "
+              f"{mean_c}: the kernel's state is not kept in f32")
     return worst
 
 
@@ -363,6 +425,69 @@ def gl_fft_loop(mag, cfg, n_iters: int):
     return _trim(istft(project(v)), cfg, t)
 
 
+def gru_bf16_at_test_shapes(dev, results: dict, widest: dict) -> dict:
+    """Kernel 2's bf16 mode at the test shapes against its plain version
+    (hold_path_calls' bar: 2^-8): the decoder's B=16 T=512 H=512
+    forward and the encoder's B=8 T=64 reverse masked, timed beside the
+    plain version, the bound (bf16 bytes; operations at the dense bf16
+    peak) and cuDNN nn.GRU forward in bf16 (input 640, so it includes the
+    projection: the bf16 projection + kernel 2 is timed beside it); and at
+    the widest bf16 H that fits, against the f32 mode's limit."""
+    import torch
+
+    from zerospeech_tts_tpu_torch.ops import gru
+    from zerospeech_tts_tpu_torch.tools.workload import cuda_ms
+
+    def inputs(b, t, h, seed):
+        g = torch.Generator().manual_seed(seed)
+        xw = torch.randn(b, t, 3 * h, generator=g).to(dev, torch.bfloat16)
+        wh = (torch.randn(h, 3 * h, generator=g) / math.sqrt(h)).to(dev, torch.bfloat16)
+        bh = (0.1 * torch.randn(3 * h, generator=g)).to(dev, torch.bfloat16)
+        return xw, wh, bh
+
+    out, errs = {}, []
+    lens8 = torch.tensor([64, 61, 40, 64, 33, 9, 57, 1], dtype=torch.int32, device=dev)
+    for tag, b, t, h, rev, ln in (("decoder fwd", 16, 512, 512, False, None),
+                                  ("encoder rev masked", 8, 64, 512, True, lens8),
+                                  ("widest H", 2, 16, widest["bfloat16"], False, None)):
+        xw, wh, bh = inputs(b, t, h, 30 + len(errs))
+        kw = {"reverse": rev}
+        calls = {0: [[xw, wh, bh] + ([ln] if ln is not None else []), kw, 1]}
+        errs.append(hold_path_calls("gru_bf16", calls, f"gru_bf16 {tag}"))
+        line = f"gru_bf16 {tag} B={b} T={t} H={h}: max_abs_err {errs[-1]:.3e} (<= 2^-8)"
+        if tag == "decoder fwd":
+            k_ms = cuda_ms(lambda: gru.gru_scan(xw, wh, bh), 5)
+            p_ms = cuda_ms(lambda: gru.gru_scan_plain(xw, wh, bh), 3)
+            out.update(ms=k_ms, plain_ms=p_ms,
+                       **bound(*work("gru_bf16", (xw, wh, bh), {}), peak=PEAK_BF16_FLOPS))
+            line += f"  kernel {k_ms:.3f} ms  plain {p_ms:.3f} ms  bound {out['bound_ms']:.4f} ms"
+        print(line, flush=True)
+    # cuDNN nn.GRU forward in bf16 against the bf16 projection + kernel 2,
+    # alternating over 7 rounds (medians), at B=16 T=512 I=640 H=512
+    g = torch.Generator().manual_seed(40)
+    x16 = torch.randn(16, 512, 640, generator=g).to(dev, torch.bfloat16)
+    wi = (torch.randn(640, 1536, generator=g) / math.sqrt(640)).to(dev, torch.bfloat16)
+    bi = (0.1 * torch.randn(1536, generator=g)).to(dev, torch.bfloat16)
+    _, wh, bh = inputs(1, 1, 512, 41)
+    ref = torch.nn.GRU(640, 512, batch_first=True).to(dev, torch.bfloat16)
+
+    def cudnn_fwd():
+        with torch.no_grad():
+            ref(x16)
+
+    pairs = {"projection_fwd_ms": (lambda: gru.gru_scan((x16 @ wi + bi).contiguous(), wh, bh), []),
+             "cudnn_fwd_ms": (cudnn_fwd, [])}
+    for _ in range(7):
+        for fn, runs in pairs.values():
+            runs.append(cuda_ms(fn, 4))
+    med = {k: statistics.median(runs) for k, (_, runs) in pairs.items()}
+    results["gru_bf16_vs_cudnn"] = {k: dict(median=med[k], runs=runs) for k, (_, runs) in pairs.items()}
+    print(f"gru_bf16: projection + kernel 2 {med['projection_fwd_ms']:.3f} ms vs cuDNN nn.GRU bf16 fwd "
+          f"{med['cudnn_fwd_ms']:.3f} ms (B=16 T=512 I=640, medians of 7): "
+          f"{med['projection_fwd_ms'] / med['cudnn_fwd_ms']:.3f}x", flush=True)
+    return dict(max_abs_err=max(errs), library_ms=med["cudnn_fwd_ms"], widest_h=widest, **out)
+
+
 def main() -> None:
     try:
         import torch
@@ -378,7 +503,7 @@ def main() -> None:
         from zerospeech_tts_tpu_torch.dsp import audio
         from zerospeech_tts_tpu_torch.ops import build, frontend, griffin_lim, gru
         from zerospeech_tts_tpu_torch.tools.workload import (
-            TARGETS, WAV_SAMPLES, cuda_ms, fullscale, speechlike, write_train_corpus, write_workload,
+            TARGETS, WAV_SAMPLES, cuda_ms, fullscale, speechlike, write_workload,
         )
     except ImportError as e:
         fail(f"zerospeech_tts_tpu_torch is not importable beside {__file__} ({e})")
@@ -390,19 +515,30 @@ def main() -> None:
 
     # ------------------------------------------------------------- build
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(ops.KERNELS)) as pool:  # one nvcc per source, all at once
-        list(pool.map(build.load, ops.KERNELS))
-    print(f"build: {time.perf_counter() - t0:.2f} s wall for {len(ops.KERNELS)} kernels", flush=True)
-    for name in ops.KERNELS:
-        print(f"  nvcc {name}: {build.build_seconds[name]:.2f} s", flush=True)
-        for line in build.build_log.get(name, "").splitlines():
+    with ThreadPoolExecutor(len(ops.SOURCES)) as pool:  # one nvcc per source, all at once
+        list(pool.map(build.load, ops.SOURCES))
+    print(f"build: {time.perf_counter() - t0:.2f} s wall for {len(ops.KERNELS)} kernels from "
+          f"{len(ops.SOURCES)} sources", flush=True)
+    for src in ops.SOURCES:
+        print(f"  nvcc {src}.cu: {build.build_seconds[src]:.2f} s", flush=True)
+        for line in build.build_log.get(src, "").splitlines():
             if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
-    for b in (1, 2, 6, 16, 32, 64):  # kernel 2: the conversion path's rows, the test shape, training's
-        kc, n_k, nb, n_b, cb, smem, rows, wreg = gru.scan_plan(dev, b, 512)
-        print(f"  gru recurrence B={b} H=512: {n_k} column groups x {n_b} batch groups = {n_k * n_b} "
-              f"blocks of {kc} columns x {nb} rows ({cb} staged at a time), {smem} B dynamic shared "
-              f"memory each, wh in {'registers and ' if wreg else ''}shared memory, {rows} rows a launch")
+                print(f"  ptxas {src}: {line.strip()}")
+    for dt in (torch.float32, torch.bfloat16):
+        for b in (1, 2, 6, 16, 32, 64):  # kernel 2: the conversion paths' rows, the test shape, training's
+            kc, n_k, nb, n_b, cb, smem, rows, wreg = gru.scan_plan(dev, b, 512, dt)
+            print(f"  gru {str(dt)[6:]} recurrence B={b} H=512: {n_k} column groups x {n_b} batch groups = "
+                  f"{n_k * n_b} blocks of {kc} columns x {nb} rows ({cb} staged at a time), {smem} B dynamic "
+                  f"shared memory each, wh in {'registers and ' if wreg else ''}shared memory, {rows} rows "
+                  "a launch")
+    widest = {}
+    for dt in (torch.float32, torch.bfloat16):  # the widest H kernel 2 takes (wider raises ValueError)
+        lo, hi = 512, 4096
+        while lo < hi:
+            mid = (lo + hi + 1) // 2
+            lo, hi = (mid, hi) if gru.scan_plan(dev, 16, mid, dt)[0] else (lo, mid - 1)
+        widest[str(dt)[6:]] = lo
+    print(f"  gru widest H that fits (B=16): {widest}", flush=True)
     for b, h in ((32, 512), (64, 512), (128, 512)):  # kernel 3's recurrence, training shapes
         kc, nb, cb, n_k, n_b, smem = gru.bwd_plan(dev, b, h)
         print(f"  gru_bwd recurrence B={b} H={h}: {n_k} column groups x {n_b} batch groups = "
@@ -485,6 +621,7 @@ def main() -> None:
     results["gru"] = dict(  # library_ms: cuDNN nn.GRU forward, timed below beside the projection + kernel 2
         max_abs_err=max(gru_errs), ms=gru_ms["decoder fwd"][0], plain_ms=gru_ms["decoder fwd"][1],
         **bound(*work("gru", gru_weights(b, t, h, 0), {})))
+    results["gru_bf16"] = gru_bf16_at_test_shapes(dev, results, widest)
 
     # kernel 3: decoder shape, encoder shape forward and reverse, the
     # encoder at twice the batch (rows staged in two chunks), ragged B and
@@ -736,13 +873,20 @@ def main() -> None:
     check(agree >= 0.999, f"units on the card disagree with the CPU reference: {agree}")
     check(pcm_rel <= 1e-2, f"audio on the card disagrees with the CPU reference: {pcm_rel}")
 
+    # ------------------------------ bf16 conversion routes and serve, end to end
+    bf16 = bf16_routes(OUT, wav_dir, result_dir)
+    path["gru_bf16"] = bf16.pop("path")
+    served = serve_path(OUT, wav_dir, result_dir)
+
     # ------------------------------------------------ corpus path, end to end
     corpus = corpus_path(OUT / "corpus", OUT / "bundle")
 
     # ---------------------------------------------- training path, end to end
     train = train_path(OUT / "train")
-    by_path = {"conversion": conv_launches, **corpus.pop("launches"), "training": train.pop("launches"),
-               "convert_after_training": train.pop("convert_launches")}
+    mel = mel_path(OUT / "mel")
+    by_path = {"conversion": conv_launches, **bf16.pop("launches"), "serve": served.pop("launches"),
+               **corpus.pop("launches"), "training": train.pop("launches"),
+               "convert_after_training": train.pop("convert_launches"), **mel.pop("launches")}
     path["gru_bwd"] = train.pop("path")
     step_check = card_vs_cpu_steps()
     check("jax" not in sys.modules, "jax was imported")
@@ -750,9 +894,9 @@ def main() -> None:
     kernels = []
     for name in ops.KERNELS:
         r, pt = results[name], path[name]
-        on = "training" if name == "gru_bwd" else "conversion"
+        on = {"gru_bwd": "training", "gru_bf16": "conversion_bf16"}.get(name, "conversion")
         kernels.append(dict(
-            name=name, route="cuda", source=f"{SRC}/{name}.cu", replaces=REPLACES[name],
+            name=name, route="cuda", source=f"{SRC}/{ops.KERNELS[name][2]}.cu", replaces=REPLACES[name],
             launches=by_path[on][name], launches_path=on,
             launches_by_path={p: c[name] for p, c in by_path.items()}, max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
@@ -765,11 +909,324 @@ def main() -> None:
              gl_rel_l2=results["griffin_lim"]["rel_l2"], gl100_conversion=gl100, path=path,
              reference_unit_agreement=agree,
              reference_pcm_rel_l2=pcm_rel, corpus=corpus, training=train,
+             gru_bf16_like_for_like=results["gru_bf16_vs_cudnn"], gru_bf16_control=BF16_CONTROL,
+             bf16_routes=bf16, serve=served, mel=mel,
              card_vs_cpu_steps=step_check, card=card_line()), indent=2) + "\n")
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
+
+
+def unit_files_agreement(dir_a: Path, dir_b: Path) -> tuple[float, int]:
+    """(share of equal unit bits, bits) over the unit files of dir_a/units,
+    each against its namesake in dir_b/units (same shapes required)."""
+    from zerospeech_tts_tpu_torch.convert import read_units
+
+    same = bits = 0
+    for p in sorted((dir_a / "units").glob("*.txt")):
+        ua, ub = read_units(p), read_units(dir_b / "units" / p.name)
+        check(ua.shape == ub.shape, f"{p.name}: units {ua.shape} against {ub.shape}")
+        same += int((ua == ub).sum())
+        bits += ua.size
+    check(bits > 0, f"no unit files in {dir_a}")
+    return same / bits, bits
+
+
+def bf16_routes(out: Path, wav_dir: Path, exact_dir: Path, device: str = "cuda") -> dict:
+    """``convert --bf16`` and ``convert --bf16 --enc-f32`` through the CLI on
+    the conversion path's wavs and bundle (flagship width, GL-100), each
+    route's launches counted apart (0 just before, read just after) and its
+    kernel inputs kept: the all-bf16 route runs kernel 2 in bf16 for the
+    encoder and the decoder, the enc-f32 route f32 for the encoder; neither
+    takes the plain route. Unit agreement with the exact route's files:
+    >= 0.999 for enc-f32, > 0.9 for all-bf16. Kernel 2 (both modes) and
+    kernel 4 are held at every input the routes gave them; kernel 2's bf16
+    path times come from the all-bf16 route."""
+    import scipy.io.wavfile
+    import torch
+
+    from zerospeech_tts_tpu_torch import cli, ops
+    from zerospeech_tts_tpu_torch.tools.workload import TARGETS
+
+    routes = {"conversion_bf16": ["--bf16"], "conversion_bf16_enc_f32": ["--bf16", "--enc-f32"]}
+    launches, calls, agree, walls = {}, {}, {}, {}
+    for route, flags in routes.items():
+        calls[route] = {}
+        res = out / f"result_{route}"
+        with capture(("frontend", "gru", "griffin_lim"), calls[route]):
+            ops.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cli.main(["convert", "--from-export", str(out / "bundle"), "--from-wavs", str(wav_dir),
+                      "-result_dir", str(res), "--target", *TARGETS, *flags, "--device", device])
+            torch.cuda.synchronize()
+            walls[route] = time.perf_counter() - t0
+            launches[route] = ops.launch_counts()
+        want = {"frontend", "gru_bf16", "griffin_lim"} | ({"gru"} if "--enc-f32" in flags else set())
+        for name in ("frontend", "gru", "gru_bf16", "griffin_lim", "gru_bwd"):
+            n = launches[route][name]
+            check(n > 0 if name in want else n == 0, f"{route}: kernel {name} launched {n} times")
+        agree[route] = unit_files_agreement(res, exact_dir)[0]
+        for p in sorted((exact_dir / TARGETS[0]).glob("*.wav")):
+            for tgt in TARGETS:
+                sr, pcm = scipy.io.wavfile.read(res / tgt / p.name)
+                check(sr == 16000 and pcm.dtype == "int16" and pcm.shape == scipy.io.wavfile.read(p)[1].shape,
+                      f"{route} {tgt}/{p.name}: {sr} Hz {pcm.dtype} {pcm.shape}")
+        print(f"{route}: wall {walls[route]:.3f} s; launches {launches[route]}; unit agreement with the "
+              f"exact route {agree[route]:.6f}", flush=True)
+    check(agree["conversion_bf16_enc_f32"] >= 0.999,
+          f"--bf16 --enc-f32 units agree with the exact route at {agree['conversion_bf16_enc_f32']} (< 0.999)")
+    check(agree["conversion_bf16"] > 0.9, f"--bf16 units agree with the exact route at {agree['conversion_bf16']}")
+    held = {}
+    for route in routes:
+        for name in ("frontend", "gru", "gru_bf16", "griffin_lim"):
+            c = calls[route].get(name, {})
+            n = sum(count for _, _, count in c.values())
+            check(n == launches[route][name], f"{route}: {n} captured {name} calls, {launches[route][name]} launches")
+            if c and name != "frontend":  # the frontend's inputs are the exact route's, held there
+                held[f"{name} {route}"] = hold_path_calls(name, c, route)
+    print("kernels at the bf16 routes' inputs against their plain versions: "
+          + "; ".join(f"{k} {v:.3e}" for k, v in held.items()), flush=True)
+    pt = path_times("gru_bf16", calls["conversion_bf16"]["gru_bf16"])
+    print(f"gru_bf16 on the conversion_bf16 path: {pt['launches']} launches, shapes "
+          + ", ".join(f"{x['shape']} x{x['count']}" for x in pt["shapes"])
+          + f": kernel {pt['ms']:.3f} ms  plain {pt['plain_ms']:.3f} ms  bound {pt['bound_ms']:.4f} ms", flush=True)
+    return dict(launches=launches, agreement=agree, held=held, path=pt, walls_s=walls)
+
+
+def serve_path(out: Path, wav_dir: Path, exact_dir: Path, device: str = "cuda") -> dict:
+    """The ``serve`` verb in a thread of this process (cli.cmd_serve, the
+    verb's own code) on 127.0.0.1, port 0, with the conversion path's bundle
+    and ``--warmup-buckets`` of the path's buckets; once it serves, 8
+    concurrent /convert requests (the path's 8 wavs to V001 and V002) and 4
+    /units requests, twice (the first burst meets batch shapes the warmup's
+    single rows did not), launches counted from just before the first
+    request to just after the last. Checks: fewer dispatches than requests
+    in each burst; the units equal
+    those of ``convert --from-wavs`` on the same wavs except bits whose
+    plain-CPU logit margin is < 1e-4; /convert answers 16 kHz PCM16 of the
+    CLI's lengths; no plain route. Prints p50/p95 request latency."""
+    import base64
+    import io
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import scipy.io.wavfile
+    import torch
+
+    from zerospeech_tts_tpu_torch import cli, ops
+    from zerospeech_tts_tpu_torch.convert import read_units
+    from zerospeech_tts_tpu_torch.dsp import audio
+    from zerospeech_tts_tpu_torch.dsp.wavio import load_wav, trim_silence
+    from zerospeech_tts_tpu_torch.export import load_export
+    from zerospeech_tts_tpu_torch.models import Encoder
+    from zerospeech_tts_tpu_torch.params import from_flax
+    from zerospeech_tts_tpu_torch.tools.workload import TARGETS
+
+    args = cli.build_parser().parse_args([
+        "serve", "--from-export", str(out / "bundle"), "--host", "127.0.0.1", "--port", "0",
+        "--warmup-buckets", "128,256,320,384,512", "--warmup-targets", str(len(TARGETS)),
+        "--batch-size", "8", "--batch-window-ms", "50", "--device", device])
+    ready, result, bound_ev = [], {}, threading.Event()
+
+    def on_serving(httpd, svc):
+        ready.append((httpd, svc))
+        bound_ev.set()
+
+    t0 = time.perf_counter()
+    th = threading.Thread(target=lambda: result.update(cli.cmd_serve(args, on_serving)), daemon=True)
+    th.start()
+    check(bound_ev.wait(600), "serve did not start within 600 s")
+    start_s = time.perf_counter() - t0
+    httpd, svc = ready[0]
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    wav_paths = sorted(wav_dir.glob("*.wav"))
+    bodies = {p.stem: p.read_bytes() for p in wav_paths}
+    reqs = [("convert", p.stem) for p in wav_paths] + [("units", p.stem) for p in wav_paths[:4]]
+
+    def send(req):
+        kind, stem = req
+        url = f"{base}/convert?targets={','.join(TARGETS)}" if kind == "convert" else f"{base}/units"
+        t = time.perf_counter()
+        with urllib.request.urlopen(urllib.request.Request(url, data=bodies[stem], method="POST"),
+                                    timeout=300) as resp:
+            body = json.loads(resp.read())
+        return kind, stem, body, time.perf_counter() - t
+
+    rounds = []  # two bursts: the first meets the batch shapes the warmup's single rows did not
+    try:
+        ops.reset_launches()
+        for _ in range(2):
+            d0, s0 = svc.dispatches, svc.served
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            with ThreadPoolExecutor(len(reqs)) as pool:
+                answers = list(pool.map(send, reqs))
+            torch.cuda.synchronize()
+            rounds.append(dict(answers=answers, wall=time.perf_counter() - t1, dispatches=svc.dispatches - d0,
+                               served=svc.served - s0))
+        launches = ops.launch_counts()
+        with urllib.request.urlopen(f"{base}/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+    finally:
+        httpd.shutdown()
+        th.join(60)
+    check(not th.is_alive(), "the serve verb did not return after shutdown")
+    for name in ("frontend", "gru", "griffin_lim"):
+        check(launches[name] > 0, f"serve: kernel {name} was not launched")
+    check(launches["gru_bf16"] == 0 and launches["gru_bwd"] == 0, f"serve launches {launches}")
+    for rd in rounds:
+        check(rd["served"] == len(reqs) and rd["dispatches"] < len(reqs),
+              f"serve: {rd['dispatches']} dispatches for {rd['served']} of {len(reqs)} requests")
+    check(health["ok"] and health["platform"] == ("gpu" if device == "cuda" else device), f"healthz {health}")
+
+    b = load_export(out / "bundle")
+    cpu_enc = None
+    flips = bits = 0
+    margin_max = 0.0
+    for kind, stem, body, _ in [a for rd in rounds for a in rd["answers"]]:
+        u = np.array([[int(v) for v in row.split()] for row in body["units"].splitlines()], np.int32)
+        ref = read_units(exact_dir / "units" / f"{stem}.txt")
+        check(u.shape == ref.shape, f"serve {kind} {stem}: units {u.shape}, the CLI's {ref.shape}")
+        bits += u.size
+        if (u != ref).any():
+            if cpu_enc is None:
+                cpu_enc = Encoder(b.hps)
+                cpu_enc.load_state_dict(from_flax({"enc": b.enc, "dec": b.dec})[0])
+                cpu_enc.eval()
+            y = trim_silence(load_wav(wav_dir / f"{stem}.wav", b.acfg.sr), b.acfg.top_db)
+            _, mag = audio.wav_to_features(torch.from_numpy(y)[None], b.acfg)
+            x = torch.from_numpy(b.stats.normalize(mag[0].numpy(), "__global__"))
+            with torch.inference_mode():
+                lg = cpu_enc(x[None])[0].numpy()
+            m = np.abs(lg[..., 0] - lg[..., 1])[u != ref]
+            flips += m.size
+            margin_max = max(margin_max, float(m.max()))
+            check(bool((m < 1e-4).all()), f"serve {kind} {stem}: units flip bits with margins {m[m >= 1e-4]}")
+        if kind == "convert":
+            check(set(body["wavs"]) == set(TARGETS), f"serve {stem}: wavs for {sorted(body['wavs'])}")
+            for tgt, b64 in body["wavs"].items():
+                sr, pcm = scipy.io.wavfile.read(io.BytesIO(base64.b64decode(b64)))
+                want = scipy.io.wavfile.read(exact_dir / tgt / f"{stem}.wav")[1]
+                check(sr == 16000 and pcm.dtype == np.int16 and pcm.shape == want.shape,
+                      f"serve {tgt}/{stem}: {sr} Hz {pcm.dtype} {pcm.shape}, want {want.shape}")
+    report = []
+    for i, rd in enumerate(rounds):
+        lat = {k: [a[3] for a in rd["answers"] if a[0] == k] for k in ("convert", "units")}
+        lat["all"] = [a[3] for a in rd["answers"]]
+        pct = {k: dict(p50=float(np.percentile(v, 50)), p95=float(np.percentile(v, 95))) for k, v in lat.items()}
+        report.append(dict(wall_s=rd["wall"], dispatches=rd["dispatches"], latency_s=pct))
+        print(f"serve burst {i + 1}: {len(reqs)} concurrent requests ({len(wav_paths)} /convert to {len(TARGETS)} "
+              f"targets, 4 /units) in {rd['wall']:.3f} s, {rd['dispatches']} dispatches; latency p50/p95 "
+              + ", ".join(f"{k} {v['p50']:.3f}/{v['p95']:.3f} s" for k, v in pct.items()), flush=True)
+    print(f"serve: up (bundle load, warmup of 5 buckets x {len(TARGETS)} targets) in {start_s:.2f} s; launches "
+          f"over both bursts {launches}; units equal the CLI's but {flips} of {bits} bits (largest plain-CPU "
+          f"margin {margin_max:.3e}, < 1e-4); 16 kHz PCM16", flush=True)
+    return dict(launches=launches, start_s=start_s, requests=len(reqs), bursts=report, unit_flips=flips,
+                unit_bits=bits, result=result)
+
+
+def mel_path(work: Path, device: str = "cuda") -> dict:
+    """``--feat mel`` at flagship width: the flagship hps with n_feat = 80
+    (n_mels), written under ``work``, and a seeded 6-speaker corpus through
+    the CLI on the card: preprocess -> train1 --feat mel (2 iterations a
+    phase) -> train2 --feat mel --data-bf16 (one GAN cycle, the features
+    kept on the card in bf16) -> export --feat mel, its
+    launches counted; then convert --from-export --from-wavs at GL-100,
+    counted apart, with every magnitude array kernel 4 received (the mel
+    lift, dsp/audio.py mel_to_gl_magnitudes) held against the float64 lift
+    of the same mel input (rel-L2 and largest difference within 1e-5 of the
+    largest magnitude), and kernel 4 held at those inputs."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    import scipy.io.wavfile
+    import torch
+
+    from zerospeech_tts_tpu_torch import cli, ops
+    from zerospeech_tts_tpu_torch.config import DEFAULT_HPS_PATH, load_configs
+    from zerospeech_tts_tpu_torch.convert import read_units
+    from zerospeech_tts_tpu_torch.dsp import audio
+    from zerospeech_tts_tpu_torch.tools.workload import TARGETS, write_train_corpus
+
+    shutil.rmtree(work, ignore_errors=True)
+    corpus = write_train_corpus(work, seed=1)
+    hps, acfg = load_configs(DEFAULT_HPS_PATH)
+    d = dataclasses.asdict(hps.replace(n_feat=acfg.n_mels))
+    d["audio"] = dataclasses.asdict(acfg)
+    (work / "hps_mel.json").write_text(json.dumps(d))
+    ds, ck, bundle = str(work / "ds"), str(work / "ck"), str(work / "bundle")
+    c = ["--hps", str(work / "hps_mel.json"), "--device", device]
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cli.main(["preprocess", "--corpus", str(corpus), "-dataset_path", ds, *c])
+    r1 = cli.main(["train1", "-dataset_path", ds, "-ckpt_dir", ck, "--iters-override", "2", "--feat", "mel", *c])
+    r1.pop("state")
+    r2 = cli.main(["train2", "-dataset_path", ds, "-ckpt_dir", ck, "--iters-override", "1", "--feat", "mel",
+                   "--data-bf16", "--targets", *TARGETS, *c])
+    r2.pop("state")
+    ex = cli.main(["export", "-dataset_path", ds, "-ckpt_dir", ck, "--out", bundle, "--feat", "mel", *c])
+    torch.cuda.synchronize()
+    train_wall = time.perf_counter() - t0
+    train_launches = ops.launch_counts()
+    for name in ("frontend", "gru", "gru_bwd"):
+        check(train_launches[name] > 0, f"kernel {name} was not launched on the mel training path")
+    check(r1["step"] == 6 and r2["step"] == 6 + hps.n_critic + 1 and ex["feat"] == "mel",
+          f"mel training: steps {r1['step']}, {r2['step']}, export feat {ex['feat']}")
+    for k, v in {**r1["phases"], **r2["phases"]}.items():
+        check(all(np.isfinite(x) for x in v["last"].values()), f"mel {k}: non-finite losses {v['last']}")
+    print(f"mel training path (n_feat {acfg.n_mels}) wall {train_wall:.2f} s; launches {train_launches}", flush=True)
+
+    lifts, calls = [], {}
+    orig = audio.mel_to_gl_magnitudes
+
+    def record(mel_norm, cfg):
+        amp = orig(mel_norm, cfg)
+        lifts.append((mel_norm.detach().clone(), amp.detach().clone(), cfg))
+        return amp
+
+    audio.mel_to_gl_magnitudes = record
+    try:
+        with capture(("griffin_lim",), calls):
+            ops.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cv = cli.main(["convert", "--from-export", bundle, "--from-wavs", str(corpus / "test"),
+                           "-result_dir", str(work / "out"), "--target", *TARGETS, "--device", device])
+            torch.cuda.synchronize()
+            cv_wall = time.perf_counter() - t0
+            cv_launches = ops.launch_counts()
+    finally:
+        audio.mel_to_gl_magnitudes = orig
+    for name in ("frontend", "gru", "griffin_lim"):
+        check(cv_launches[name] > 0, f"kernel {name} was not launched on the mel conversion path")
+    n_gl = sum(count for _, _, count in calls["griffin_lim"].values())
+    check(len(lifts) == n_gl == cv_launches["griffin_lim"],
+          f"mel convert: {len(lifts)} lifts, {n_gl} captured Griffin-Lim calls, {cv_launches['griffin_lim']} launches")
+    lift_err = []
+    for mel_norm, amp, cfg in lifts:
+        pinv = torch.from_numpy(audio._mel_pinv(cfg)).to(mel_norm.device).double()
+        amp64 = torch.clamp(audio.db_norm_to_amp(mel_norm.double(), cfg) @ pinv.T, min=1e-10) ** cfg.gl_power
+        rel = (torch.linalg.norm(amp.double() - amp64) / torch.linalg.norm(amp64)).item()
+        top = ((amp.double() - amp64).abs().max() / amp64.abs().max()).item()
+        lift_err.append(dict(shape=tuple(amp.shape), rel_l2=rel, max_rel_to_top=top))
+        check(rel <= 1e-5 and top <= 1e-5, f"mel lift {tuple(amp.shape)}: rel-L2 {rel}, max diff {top} of the top")
+    gl_held = hold_path_calls("griffin_lim", calls["griffin_lim"], "mel convert")
+    u = read_units(work / "out" / "units" / "T001_0.txt")
+    check(u.shape[1] == hps.emb_size and cv["n_wavs"] == len(TARGETS), f"mel convert: {cv}, units {u.shape}")
+    for tgt in TARGETS:
+        sr, pcm = scipy.io.wavfile.read(work / "out" / tgt / "T001_0.wav")
+        check(sr == 16000 and pcm.dtype == np.int16 and len(pcm) > 1000, f"mel {tgt}: {sr} Hz {pcm.dtype}")
+    print(f"mel convert (GL-100) wall {cv_wall:.3f} s; launches {cv_launches}; kernel 4's {len(lifts)} lifted "
+          f"magnitude arrays vs the float64 lift: rel-L2 up to {max(e['rel_l2'] for e in lift_err):.3e}, largest "
+          f"difference {max(e['max_rel_to_top'] for e in lift_err):.3e} of the top (<= 1e-5); kernel 4 at those "
+          f"inputs: consistency |diff| {gl_held:.3e} (<= 1e-3)", flush=True)
+    return dict(launches={"mel_training": train_launches, "mel_convert": cv_launches}, train_wall_s=train_wall,
+                convert_wall_s=cv_wall, lift=lift_err, gl_held=gl_held)
 
 
 def corpus_path(work: Path, bundle: Path, device: str = "cuda") -> dict:

@@ -213,7 +213,33 @@ def test_load_export_refuses_orbax_bundle(tmp_path):
         load_export(tmp_path)
 
 
-def test_load_export_refuses_mel_bundle(tmp_path):
-    (tmp_path / "meta.json").write_text(json.dumps({"version": 1, "feat": "mel", "step": 0}))
-    with pytest.raises(NotImplementedError, match="feat='mel'"):
-        load_export(tmp_path)
+def test_load_export_refuses_mel_bundle(tmp_path, hps, jax_params, stats):
+    """A mel bundle whose model does not read the mel width (hps.n_feat !=
+    audio.n_mels) is refused on load and on save; one that does loads,
+    reports its feat, and the Converter takes it. A bundle of any feat but
+    lin or mel is refused."""
+    acfg = AudioConfig(**ACFG)
+    enc, dec = jax_params["enc"]["params"], jax_params["dec"]["params"]
+    save_export(tmp_path / "lin", hps, acfg, enc, dec, {"V001": 0}, stats=SpeakerStats(*stats))
+    meta = tmp_path / "lin" / "meta.json"
+    meta.write_text(json.dumps({**json.loads(meta.read_text()), "feat": "mel"}))
+    with pytest.raises(ValueError, match="n_feat=129 != audio.n_mels=20"):
+        load_export(tmp_path / "lin")
+    with pytest.raises(ValueError, match="n_feat=129 != audio.n_mels=20"):
+        save_export(tmp_path / "bad", hps, acfg, enc, dec, {"V001": 0}, stats=SpeakerStats(*stats), feat="mel")
+    hm = hps.replace(n_feat=acfg.n_mels)
+    enc_m = JaxEncoder(hm).init(jax.random.PRNGKey(0), jnp.zeros((1, 32, hm.n_feat)))
+    dec_m = JaxDecoder(hm).init(jax.random.PRNGKey(1), jnp.zeros((1, 4, hm.emb_size)), jnp.zeros((1,), jnp.int32))
+    enc_m, dec_m = jax.tree.map(np.asarray, (enc_m["params"], dec_m["params"]))
+    mean, std = ({k: v[: hm.n_feat] for k, v in d.items()} for d in stats)
+    out = save_export(tmp_path / "mel", hm, acfg, enc_m, dec_m, {"V001": 0}, stats=SpeakerStats(mean, std),
+                      feat="mel")
+    assert out["feat"] == "mel"
+    b = load_export(tmp_path / "mel")
+    assert b.feat == "mel" and json.loads((tmp_path / "mel" / "meta.json").read_text())["feat"] == "mel"
+    enc_sd, dec_sd = from_flax({"enc": b.enc, "dec": b.dec})
+    assert Converter(b.hps, b.acfg, enc_sd, dec_sd, stats=b.stats, device="cpu", feat=b.feat).feat == "mel"
+    (tmp_path / "wav").mkdir()
+    (tmp_path / "wav" / "meta.json").write_text(json.dumps({"version": 1, "feat": "wav", "step": 0}))
+    with pytest.raises(ValueError, match="feat='wav'"):
+        load_export(tmp_path / "wav")

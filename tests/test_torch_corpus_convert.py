@@ -218,9 +218,12 @@ def test_convert_refusals_match_jax(tmp_path, args, message):
 
 
 def test_convert_refuses_mel_and_unknown_targets(work):
+    """A bundle's meta.json decides its features: --feat mel against a lin
+    bundle is refused (the port converts mel bundles, see
+    tests/test_torch_mel.py), as is a target outside the speaker map."""
     base = ["convert", "--from-export", str(work / "bundle"), "-dataset_path", str(work / "ds"),
             "-result_dir", str(work / "refused"), "--device", "cpu"]
-    with pytest.raises(SystemExit, match="lin features only"):
+    with pytest.raises(SystemExit, match="trained on lin features"):
         cli.main([*base, "--feat", "mel"])
     with pytest.raises(SystemExit, match="not in the speaker map"):
         cli.main([*base, "--target", "V009"])

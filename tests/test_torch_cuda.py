@@ -16,7 +16,7 @@ import torch
 from zerospeech_tts_tpu_torch.config import AudioConfig
 from zerospeech_tts_tpu_torch.dsp import audio
 from zerospeech_tts_tpu_torch.ops import frontend, griffin_lim, gru
-from zerospeech_tts_tpu_torch.tools.workload import fullscale
+from zerospeech_tts_tpu_torch.tools.workload import fullscale, gru_scan_bf16_state
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(1)
@@ -121,6 +121,87 @@ def test_gru_kernel_slices_a_batch_too_large_for_one_launch(cuda):
         assert gru.launches == before + 2, reverse
         err = (out - gru.gru_scan_plain(xw, wh, bh, lengths, reverse=reverse)).abs().max().item()
         assert err <= 1e-4, (reverse, err)
+
+
+BF16_ULP = 2.0**-8  # one bf16 ulp at |y| in [0.5, 1): the top of the GRU's output range
+
+
+def _gru_inputs_typed(b, t, h, seed, device, dtype):
+    gen = torch.Generator().manual_seed(seed)
+    xw = torch.randn(b, t, 3 * h, generator=gen).to(device, dtype)
+    wh = (torch.randn(h, 3 * h, generator=gen) / math.sqrt(h)).to(device, dtype)
+    bh = (0.1 * torch.randn(3 * h, generator=gen)).to(device, dtype)
+    return xw, wh, bh, gen
+
+
+BF16_CONTROL_RATIO = 0.5  # mean |kernel - plain| against mean |bf16-state control - plain|
+
+
+def _hold_bf16(out, xw, wh, bh, lens=None, reverse=False):
+    """Kernel 2's bf16 output against the plain version: within one bf16
+    ulp, and on average far nearer it than the control that rounds its
+    state to bf16 between steps (a kernel doing that would sit near the
+    control). Returns (max |diff|, mean |diff|, the control's mean)."""
+    ref = gru.gru_scan_plain(xw, wh, bh, lens, reverse=reverse).float()
+    diff = (out.float() - ref).abs()
+    ctl = (gru_scan_bf16_state(xw, wh, bh, lens, reverse=reverse).float() - ref).abs()
+    assert diff.max().item() <= BF16_ULP, diff.max().item()
+    assert diff.mean().item() <= BF16_CONTROL_RATIO * ctl.mean().item(), (diff.mean().item(), ctl.mean().item())
+    return diff.max().item(), diff.mean().item(), ctl.mean().item()
+
+
+@pytest.mark.parametrize("t", [64, 512])
+@pytest.mark.parametrize("b", [1, 16, 64])
+def test_gru_bf16_kernel_matches_plain(cuda, b, t):
+    """Kernel 2's bf16 mode (bf16 xw, wh, bh and ys; f32 state) against
+    gru_scan_plain in bf16 at H = 512, forward and reverse masked with
+    ragged lengths: every element within one bf16 ulp at the top of the
+    GRU's range (2^-8), and the mean difference at most half the bf16-state
+    control's. Not bit for bit: the two sum each step's product in other
+    f32 orders, and once a state lying on a bf16 rounding boundary rounds
+    apart for the next product (after some tens of steps), the two
+    recurrences drift ~1e-4 apart and a share of ys rounds one ulp apart
+    (88-98% of the elements were equal on an H100). One launch a scan,
+    counted apart from the f32 mode's."""
+    h = 512
+    for reverse, masked in ((False, False), (True, True)):
+        xw, wh, bh, gen = _gru_inputs_typed(b, t, h, b * t + 7, cuda, torch.bfloat16)
+        lens = torch.randint(1, t + 1, (b,), generator=gen, dtype=torch.int32).to(cuda) if masked else None
+        before, before32 = gru.bf16_launches, gru.launches
+        out = gru.gru_scan(xw, wh, bh, lens, reverse=reverse)
+        torch.cuda.synchronize()
+        assert (gru.bf16_launches, gru.launches) == (before + 1, before32), (reverse, masked)
+        assert out.dtype == torch.bfloat16 and out.shape == (b, t, h)
+        got = _hold_bf16(out, xw, wh, bh, lens, reverse)
+        print(f"B={b} T={t} reverse={reverse}: max |diff| {got[0]:.3e}, mean {got[1]:.3e}, control's {got[2]:.3e}")
+
+
+def test_gru_wide_h_raises_in_f32_and_states_bf16(cuda):
+    """H = 2,048: no spread of kernel 2 fits in f32 (a block's columns of wh
+    outgrow its shared memory), nor of kernel 3; the wrappers and the GRU
+    layer raise a ValueError that names H, with nothing launched. In bf16
+    the columns take half the bytes: the test states whether kernel 2 fits
+    there and, if it does, holds it against its plain version."""
+    from zerospeech_tts_tpu_torch.models.layers import GRU
+
+    b, t, h = 2, 8, 2048
+    assert gru.scan_plan(cuda, b, h)[0] == 0 and gru.bwd_plan(cuda, b, h)[0] == 0
+    xw, wh, bh, _ = _gru_inputs_typed(b, t, h, 5, cuda, torch.float32)
+    launched, bwd = gru.launches, gru.bwd_launches
+    with pytest.raises(ValueError, match="H=2048"):
+        gru.gru_scan(xw, wh, bh)
+    with pytest.raises(ValueError, match="H=2048"):
+        gru.gru_bwd(xw, wh, bh, xw[..., :h].contiguous(), xw[..., :h].contiguous())
+    with torch.no_grad(), pytest.raises(ValueError, match="H=2048"):
+        GRU(64, h).to(cuda)(torch.zeros(b, t, 64, device=cuda))
+    assert (gru.launches, gru.bwd_launches) == (launched, bwd)
+    fits_bf16 = gru.scan_plan(cuda, b, h, torch.bfloat16)[0] > 0
+    print(f"H=2048 bf16: kernel 2 fits: {fits_bf16}; plan {gru.scan_plan(cuda, b, h, torch.bfloat16)}")
+    if fits_bf16:
+        xw16, wh16, bh16, _ = _gru_inputs_typed(b, t, h, 5, cuda, torch.bfloat16)
+        out = gru.gru_scan(xw16, wh16, bh16)
+        torch.cuda.synchronize()
+        _hold_bf16(out, xw16, wh16, bh16)
 
 
 GL_CONFIGS = {**CONFIGS, **FFT_SIZES}

@@ -2,22 +2,27 @@
 
     python -m zerospeech_tts_tpu_torch preprocess --corpus DIR -dataset_path DS
     python -m zerospeech_tts_tpu_torch train1 -dataset_path DS -ckpt_dir CK \
-        [--iters-override N] [--train-batch-size B] [--no-pairs] [--fresh] \
-        [--load_model STEP|DIR] [--log_dir L]
+        [--feat lin|mel] [--data-bf16] [--iters-override N] [--train-batch-size B] \
+        [--no-pairs] [--fresh] [--load_model STEP|DIR] [--log_dir L]
     python -m zerospeech_tts_tpu_torch train2 -dataset_path DS -ckpt_dir CK \
-        [--targets V001 V002] [--iters-override N]
-    python -m zerospeech_tts_tpu_torch export -dataset_path DS -ckpt_dir CK --out B
+        [--feat lin|mel] [--data-bf16] [--targets V001 V002] [--iters-override N]
+    python -m zerospeech_tts_tpu_torch export -dataset_path DS -ckpt_dir CK --out B \
+        [--feat lin|mel]
     python -m zerospeech_tts_tpu_torch convert (--from-export B | -dataset_path DS \
-        -ckpt_dir CK [--load_model STEP|DIR]) [--from-wavs W | -dataset_path DS \
-        [--split test]] -result_dir O [--target V001 V002] [--units-only] \
-        [--gl-iters N] [--batch-size N] [--limit N] [--frame-budget N] \
-        [--adaptive-buckets K [--bucket-overhead-target F] \
-        [--bucket-cost-model frames|executed]]
-    python -m zerospeech_tts_tpu_torch convert-single --from-export B \
-        --source X.wav --target V001 -result_dir O
+        -ckpt_dir CK [--load_model STEP|DIR] [--feat lin|mel]) [--from-wavs W | \
+        -dataset_path DS [--split test]] -result_dir O [--target V001 V002] \
+        [--units-only] [--bf16 [--enc-f32]] [--gl-iters N] [--batch-size N] \
+        [--limit N] [--frame-budget N] [--adaptive-buckets K \
+        [--bucket-overhead-target F] [--bucket-cost-model frames|executed]]
+    python -m zerospeech_tts_tpu_torch convert-single (--from-export B | \
+        -dataset_path DS -ckpt_dir CK) --source X.wav --target V001 -result_dir O \
+        [--bf16 [--enc-f32]] [--feat lin|mel]
+    python -m zerospeech_tts_tpu_torch serve (--from-export B | -dataset_path DS \
+        -ckpt_dir CK) [--host H] [--port P] [--batch-size N] [--batch-window-ms MS] \
+        [--warmup-buckets 256,512] [--bf16 [--enc-f32]] [--feat lin|mel]
     python -m zerospeech_tts_tpu_torch eval [--units O/units [--abx ITEMS \
         [--abx-across] [--abx-max-triples N]]] [--recon] [--stability] \
-        [-dataset_path DS -ckpt_dir CK --split train --n-segments 64]
+        [-dataset_path DS -ckpt_dir CK --split train --n-segments 64 --feat lin|mel]
     python -m zerospeech_tts_tpu_torch submission --lang english=O:V001 \
         [-o submission.zip] [--author A ...] | --validate ZIP
 
@@ -29,7 +34,8 @@ the device, so ``-index_path`` and ``--device-data`` have no counterpart.
 Every verb that runs a model takes ``--device``: ``cuda`` (the default)
 runs the hand-written kernels and exits with an error when no CUDA device
 is visible; ``cpu`` runs their plain versions. ``submission`` and ``eval
---units/--abx`` read files only.
+--units/--abx`` read files only. ``--wire-uint8`` and ``--wire-mulaw`` are
+refused: they are on ROADMAP.md's "do not port" list.
 """
 
 from __future__ import annotations
@@ -43,6 +49,36 @@ from pathlib import Path
 import torch
 
 from zerospeech_tts_tpu_torch.config import DEFAULT_HPS_PATH, load_configs
+
+
+FEATS = ("lin", "mel")
+
+
+def model_source(p) -> None:
+    """The model of convert-single and serve: a bundle, or a checkpoint
+    with its corpus (speaker map, statistics) and hps."""
+    p.add_argument("--from-export", default=None, metavar="DIR",
+                   help="export bundle (model.npz, its own hps), in place of -ckpt_dir")
+    p.add_argument("-hps", "--hps", default=str(DEFAULT_HPS_PATH),
+                   help="hps JSON of the -ckpt_dir model")
+    p.add_argument("-dataset_path", "--dataset_path", default=None,
+                   help="corpus directory (speaker map, statistics) of the -ckpt_dir model")
+    p.add_argument("-ckpt_dir", "--ckpt_dir", default=None)
+    p.add_argument("--load_model", nargs="?", const="latest", default=None, metavar="STEP|DIR",
+                   help="checkpoint selection (see train1)")
+
+
+def dtype_flags(p) -> None:
+    p.add_argument("--bf16", action="store_true",
+                   help="run the encoder and decoder in bfloat16 (the GRU keeps an f32 state; "
+                        "the frontend and Griffin-Lim stay f32); may flip borderline units")
+    p.add_argument("--enc-f32", action="store_true",
+                   help="keep the encoder in float32 under --bf16: the exact config's units")
+
+
+def wire_flags(p) -> None:
+    for flag in ("--wire-uint8", "--wire-mulaw"):
+        p.add_argument(flag, action="store_true", help="not ported (ROADMAP.md: do not port)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -77,6 +113,10 @@ def build_parser() -> argparse.ArgumentParser:
                        help="drop the same-utterance pair from stage-1 batches "
                             "(disables the hps.lambda_pair objective)")
         p.add_argument("--train-batch-size", type=int, default=None, help="override hps.batch_size")
+        p.add_argument("--feat", default="lin", choices=FEATS, help="features to train on")
+        p.add_argument("--data-bf16", action="store_true",
+                       help="hold the training arena on the device in bfloat16 (halves its "
+                            "bytes; batches are f32)")
 
     p = sub.add_parser("export", help="inference bundle (enc + dec, speakers, stats, hps)")
     common(p)
@@ -84,6 +124,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--out", required=True, metavar="DIR", help="bundle output directory")
     p.add_argument("--load_model", nargs="?", const="latest", default=None, metavar="STEP|DIR",
                    help="checkpoint selection (see train1)")
+    p.add_argument("--feat", default="lin", choices=FEATS,
+                   help="features the model was trained on (recorded in the bundle)")
 
     p = sub.add_parser("convert", help="corpus conversion + unit extraction (ref --test)")
     p.add_argument("--from-export", default=None, metavar="DIR",
@@ -106,8 +148,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--limit", type=int, default=None)
     p.add_argument("--units-only", action="store_true",
                    help="dump discrete units without synthesis (ref enc_only)")
-    p.add_argument("--feat", default="lin",
-                   help="features the model was trained on (lin only, see ROADMAP)")
+    p.add_argument("--feat", default=None, choices=FEATS,
+                   help="features the model was trained on (default: the bundle's, else lin)")
+    dtype_flags(p)
+    wire_flags(p)
     p.add_argument("--adaptive-buckets", type=_positive_int, default=None, metavar="K",
                    help="fit <=K length-bucket edges (multiples of 64 frames) to the "
                         "utterances' lengths before converting")
@@ -124,11 +168,40 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda", help="cuda (kernels) or cpu (plain PyTorch)")
 
     p = sub.add_parser("convert-single", help="single-utterance VC (ref --test_single)")
-    p.add_argument("--from-export", required=True, metavar="DIR", help="export bundle (model.npz)")
+    model_source(p)
     p.add_argument("-result_dir", "--result_dir", required=True)
     p.add_argument("--source", required=True, help="source wav path")
     p.add_argument("--target", required=True, help="target speaker name")
     p.add_argument("--gl-iters", type=int, default=None)
+    p.add_argument("--feat", default=None, choices=FEATS,
+                   help="features the model was trained on (default: the bundle's, else lin)")
+    dtype_flags(p)
+    p.add_argument("--device", default="cuda", help="cuda (kernels) or cpu (plain PyTorch)")
+
+    p = sub.add_parser("serve", help="HTTP conversion service: a warm model and request "
+                                     "micro-batching (no reference counterpart)")
+    model_source(p)
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8571, help="0 picks a free port")
+    p.add_argument("--batch-size", type=int, default=8,
+                   help="the micro-batch ceiling: requests a dispatch")
+    p.add_argument("--batch-window-ms", type=float, default=5.0,
+                   help="the longest a request waits for companions of its plan")
+    p.add_argument("--request-timeout", type=float, default=900.0,
+                   help="seconds a request waits for its result")
+    p.add_argument("--max-body-mb", type=int, default=64,
+                   help="refuse request bodies above this size with 400 (0 = unlimited)")
+    p.add_argument("--max-frames", type=int, default=32768,
+                   help="refuse utterances longer than this many frames (0 = unlimited)")
+    p.add_argument("--warmup-buckets", default=None, metavar="FRAMES,FRAMES",
+                   help="run these utterance-length buckets once before accepting clients "
+                        "(e.g. 256,512: builds the kernels and warms the allocator)")
+    p.add_argument("--warmup-targets", type=int, default=1, help="target-set size to warm")
+    p.add_argument("--gl-iters", type=int, default=None)
+    p.add_argument("--feat", default=None, choices=FEATS,
+                   help="features the model was trained on (default: the bundle's, else lin)")
+    dtype_flags(p)
+    wire_flags(p)
     p.add_argument("--device", default="cuda", help="cuda (kernels) or cpu (plain PyTorch)")
 
     p = sub.add_parser("eval", help="challenge metrics: unit bitrate, ABX, recon L1, stability")
@@ -147,6 +220,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="cap triples per (class-pair, speaker-context) cell by seeded sampling")
     p.add_argument("--split", default="train")
     p.add_argument("--n-segments", type=int, default=64)
+    p.add_argument("--feat", default="lin", choices=FEATS, help="features the model was trained on")
 
     p = sub.add_parser("submission", help="package convert results into a ZeroSpeech "
                                           "archive, or validate one")
@@ -227,7 +301,8 @@ def _make_training(args):
     if args.train_batch_size:
         hps = hps.replace(batch_size=args.train_batch_size)
     dataset = DeviceDataset.from_corpus(args.dataset_path, hps, target_speakers=args.targets,
-                                        device=dev)
+                                        device=dev, feat=args.feat,
+                                        dtype=torch.bfloat16 if args.data_bf16 else torch.float32)
     state = init_state(hps, device=dev)
     ckpt = CheckpointManager(args.ckpt_dir, hps=hps)
     logger = Logger(args.log_dir or Path(args.ckpt_dir) / "logs")
@@ -316,8 +391,8 @@ def cmd_export(args):
     ckpt = CheckpointManager(args.ckpt_dir, hps=hps, read_only=True)  # export only loads
     src, step = _restore_source(args, hps, ckpt)
     state = src.restore(init_state(hps, device=dev), step)
-    stats = SpeakerStats.load_corpus(args.dataset_path, "lin") if hps.speaker_norm else None
-    out = export_state(args.out, hps, acfg, state, speakers, stats=stats)
+    stats = SpeakerStats.load_corpus(args.dataset_path, args.feat) if hps.speaker_norm else None
+    out = export_state(args.out, hps, acfg, state, speakers, stats=stats, feat=args.feat)
     print(json.dumps(out))
     return out
 
@@ -334,20 +409,40 @@ def _restore_state(args, hps, dev):
     return src.restore(init_state(hps, device=dev), step)
 
 
+def _refuse_wires(args) -> None:
+    for flag in ("wire_uint8", "wire_mulaw"):
+        if getattr(args, flag, False):
+            sys.exit(f"--{flag.replace('_', '-')}: the port does not have it (ROADMAP.md lists the "
+                     "uint8 feature wire and the mu-law PCM wire under 'do not port')")
+
+
+def _need_model_source(args) -> None:
+    if not (args.from_export or (args.dataset_path and args.ckpt_dir)):
+        sys.exit("pass -dataset_path and -ckpt_dir, or --from-export DIR")
+
+
 def _load_converter(args):
-    """(Converter, speaker map): from --from-export B, or from -dataset_path
-    + -ckpt_dir (hps from -hps, statistics from the corpus)."""
+    """(Converter, speaker map): from --from-export B (its recorded feat;
+    a --feat that contradicts it exits), or from -dataset_path + -ckpt_dir
+    (hps from -hps, the --feat statistics from the corpus)."""
     from zerospeech_tts_tpu_torch.convert import Converter
     from zerospeech_tts_tpu_torch.params import from_flax
 
+    _refuse_wires(args)
     dev = _device(args)
+    feat = getattr(args, "feat", None)
     if getattr(args, "from_export", None):
         from zerospeech_tts_tpu_torch.export import load_export
 
         b = load_export(args.from_export)
+        if feat is not None and feat != b.feat:
+            sys.exit(f"--feat {feat}: the bundle {args.from_export} was trained on {b.feat} "
+                     "features (meta.json)")
+        feat = b.feat
         hps, acfg, stats, speakers = b.hps, b.acfg, b.stats, dict(b.speakers)
         enc_sd, dec_sd = from_flax({"enc": b.enc, "dec": b.dec})
     else:
+        feat = feat or "lin"
         from zerospeech_tts_tpu_torch.data.corpus import load_speaker_map
         from zerospeech_tts_tpu_torch.data.device_dataset import check_speaker_ids
         from zerospeech_tts_tpu_torch.data.speaker_norm import SpeakerStats
@@ -357,7 +452,7 @@ def _load_converter(args):
         check_speaker_ids(speakers, hps)
         state = _restore_state(args, hps, dev)
         enc_sd, dec_sd = state.enc.state_dict(), state.dec.state_dict()
-        stats = SpeakerStats.load_corpus(args.dataset_path, "lin") if hps.speaker_norm else None
+        stats = SpeakerStats.load_corpus(args.dataset_path, feat) if hps.speaker_norm else None
     conv = Converter(
         hps, acfg, enc_sd, dec_sd,
         gl_iters=args.gl_iters,
@@ -365,6 +460,9 @@ def _load_converter(args):
         frame_budget=getattr(args, "frame_budget", None),
         stats=stats,
         device=dev,
+        feat=feat,
+        compute_dtype=torch.bfloat16 if args.bf16 else torch.float32,
+        encoder_dtype=torch.float32 if args.enc_f32 else None,
     )
     return conv, speakers
 
@@ -372,9 +470,6 @@ def _load_converter(args):
 def cmd_convert(args):
     from zerospeech_tts_tpu_torch.convert import convert_corpus, convert_wav_dir
 
-    if args.feat != "lin":
-        sys.exit(f"--feat {args.feat}: the port converts lin features only (feat='mel' is "
-                 "ROADMAP item 2, not ported yet)")
     if args.from_export:
         if not (args.from_wavs or args.dataset_path):
             sys.exit("--from-export has no corpus features: pass --from-wavs DIR "
@@ -413,14 +508,54 @@ def cmd_convert(args):
 def cmd_convert_single(args):
     from zerospeech_tts_tpu_torch.convert import convert_single
 
+    _need_model_source(args)
     conv, speakers = _load_converter(args)
     if args.target not in speakers:
-        sys.exit(f"target {args.target!r} not in the bundle's speaker map {sorted(speakers)[:10]}...")
+        sys.exit(f"target {args.target!r} not in the speaker map {sorted(speakers)[:10]}...")
     out = convert_single(
         conv, args.source, args.target, speakers[args.target], args.result_dir, sr=conv.acfg.sr
     )
     print(json.dumps(out))
     return out
+
+
+def cmd_serve(args, on_serving=None):
+    """Bind the HTTP service and serve until interrupted. ``on_serving``
+    (tests, chip_smoke.py) is called with (httpd, service) once the server
+    is bound and warm; ``httpd.shutdown()`` from another thread then ends
+    the call, which closes the server and the service."""
+    from zerospeech_tts_tpu_torch.serve import ConversionService, serve_http
+
+    _need_model_source(args)
+    conv, speakers = _load_converter(args)
+    service = ConversionService(
+        conv, speakers, window_ms=args.batch_window_ms, max_batch=args.batch_size,
+        request_timeout=args.request_timeout, max_body_bytes=args.max_body_mb << 20,
+        max_frames=args.max_frames,
+    )
+    try:
+        if args.warmup_buckets:
+            buckets = [int(x) for x in args.warmup_buckets.split(",") if x.strip()]
+            dt = service.warmup(buckets, n_targets=args.warmup_targets)
+            print(f"warmed {len(buckets)} buckets in {dt:.1f}s", flush=True)
+        httpd = serve_http(service, host=args.host, port=args.port)
+    except BaseException:
+        service.close()
+        raise
+    host, port = httpd.server_address[:2]
+    print(f"serving on http://{host}:{port}  (batch {args.batch_size}, window {args.batch_window_ms}ms, "
+          f"{len(speakers)} speakers, {conv.device}, feat {conv.feat}, {conv.compute_dtype}; "
+          "POST /convert?targets=..., /units; GET /healthz, /speakers)", flush=True)
+    try:
+        if on_serving is not None:
+            on_serving(httpd, service)
+        httpd.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        httpd.server_close()
+        service.close()
+    return {"dispatches": service.dispatches, "served": service.served}
 
 
 def cmd_eval(args):
@@ -445,10 +580,12 @@ def cmd_eval(args):
             sys.exit("--recon/--stability need -dataset_path and -ckpt_dir")
         state = _restore_state(args, hps, _device(args))
         if args.stability:
-            report["stability"] = ev.unit_stability(state, args.dataset_path, hps, split=args.split)
+            report["stability"] = ev.unit_stability(state, args.dataset_path, hps, feat=args.feat,
+                                                    split=args.split)
         if args.recon:
             report["reconstruction"] = ev.reconstruction_l1(
-                state, args.dataset_path, hps, split=args.split, n_segments=args.n_segments,
+                state, args.dataset_path, hps, feat=args.feat, split=args.split,
+                n_segments=args.n_segments,
             )
     if not report:
         sys.exit("nothing to evaluate: pass --units DIR, --recon, and/or --stability")
@@ -502,7 +639,7 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     return {"preprocess": cmd_preprocess, "train1": cmd_train1, "train2": cmd_train2,
             "export": cmd_export, "convert": cmd_convert,
-            "convert-single": cmd_convert_single, "eval": cmd_eval,
+            "convert-single": cmd_convert_single, "serve": cmd_serve, "eval": cmd_eval,
             "submission": cmd_submission}[args.cmd](args)
 
 

@@ -1,28 +1,39 @@
-"""Converter / discrete-unit dumper in the challenge-exact configuration
-(port of ``zerospeech_tts_tpu/convert.py``; ref convert.py --test /
---test_single).
+"""Converter / discrete-unit dumper (port of ``zerospeech_tts_tpu/convert.py``;
+ref convert.py --test / --test_single).
 
 Per length bucket and batch chunk, straight from int16 PCM:
 frontend (kernel) -> source z-norm -> encoder (GRU kernel) -> MBV bits ->
 decoder for all targets folded into one batch (GRU kernel) -> target
-denorm -> Griffin-Lim (kernel) -> de-emphasis -> PCM16. f32 throughout.
-Units are written one latent frame per line as space-separated 0/1 ints;
-wavs are 16 kHz PCM16 at ``<result>/<target_speaker>/<utt>.wav``.
+denorm -> Griffin-Lim (kernel; from mel features after a pseudo-inverse
+lift) -> de-emphasis -> PCM16. Units are written one latent frame per line
+as space-separated 0/1 ints; wavs are 16 kHz PCM16 at
+``<result>/<target_speaker>/<utt>.wav``.
+
+Configurations, as the JAX Converter's: ``feat`` ``lin`` or ``mel`` (the
+features the model was trained on); ``compute_dtype`` f32 (the
+challenge-exact default) or bf16 for the decoder, and ``encoder_dtype``
+(default: ``compute_dtype``) for the encoder, so ``--bf16 --enc-f32`` keeps
+the exact encoder under a bf16 decoder. A bf16 module runs its
+convolutions and dense layers in bf16 and its GRU through kernel 2's bf16
+mode (f32 state); the frontend and Griffin-Lim stay f32 in every
+configuration, and the decoder's output is f32 from the target denorm on.
 
 Three sources: wavs (``convert_wavs_multi``, ``convert_wav_dir``), the
-port's corpus directory of precomputed lin features (``convert_features_multi``,
+port's corpus directory of precomputed features (``convert_features_multi``,
 ``convert_corpus``; features cross to the device in bf16, the JAX package's
 feature wire), and units only, without synthesis (``encode_units_from_wavs``,
-``encode_units``, ``--units-only``). Buckets are uniform (``bucket_frames``)
-or fitted to the corpus lengths (``fit_buckets``, ``plan_buckets``), and a
+``encode_units``, ``--units-only``; always the f32 encoder, as the JAX
+package's units-only programs). Buckets are uniform (``bucket_frames``) or
+fitted to the corpus lengths (``fit_buckets``, ``plan_buckets``), and a
 ``frame_budget`` lets short buckets take more rows a dispatch.
 
-Not ported yet (ROADMAP): ``feat="mel"``, the bf16 compute configs, the
-uint8/mu-law wires and ``--dispatch-cost-frames``.
+Not ported (ROADMAP "do not port"): the uint8/mu-law wires and
+``--dispatch-cost-frames``.
 """
 
 from __future__ import annotations
 
+import copy
 from pathlib import Path
 
 import numpy as np
@@ -186,12 +197,24 @@ def plan_buckets(
     return sorted(edges)
 
 
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _as_dtype(d) -> torch.dtype:
+    if isinstance(d, torch.dtype) and d in _DTYPES.values():
+        return d
+    if d in _DTYPES:
+        return _DTYPES[d]
+    raise ValueError(f"compute dtype must be float32 or bfloat16, got {d!r}")
+
+
 class Converter:
     """Encoder + decoder on ``device``, converting PCM or feature batches
     per padded length bucket. ``enc_state``/``dec_state`` are the port's
     state dicts (``params.from_flax``). On ``device="cuda"`` (the default)
     it runs the hand-written kernels and never falls back to the CPU;
-    ``device="cpu"`` runs their plain versions.
+    ``device="cpu"`` runs their plain versions. ``feat``, ``compute_dtype``
+    and ``encoder_dtype`` as in the JAX Converter (module docstring).
 
     ``frame_budget`` (rows*frames a dispatch): short buckets take more
     utterances a dispatch (_bucket_cap: the largest allowed row count
@@ -210,8 +233,16 @@ class Converter:
         frame_budget: int | None = None,
         stats=None,  # SpeakerStats when hps.speaker_norm (z-norm in/out)
         device: str | torch.device = "cuda",
+        feat: str = "lin",  # which features the model was trained on (lin|mel)
+        compute_dtype="float32",  # the decoder's dtype: float32 | bfloat16
+        encoder_dtype=None,  # the encoder's: None -> compute_dtype
     ):
         assert bucket_frames % hps.downsample == 0
+        if feat not in ("lin", "mel"):
+            raise ValueError(f"feat must be lin or mel, got {feat!r}")
+        self.feat = feat
+        self.compute_dtype = _as_dtype(compute_dtype)
+        self.encoder_dtype = _as_dtype(encoder_dtype) if encoder_dtype else self.compute_dtype
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {self.device}: no CUDA device is visible")
@@ -225,8 +256,11 @@ class Converter:
         self.decoder = Decoder(hps)
         self.encoder.load_state_dict(enc_state)
         self.decoder.load_state_dict(dec_state)
-        self.encoder.to(self.device).eval().requires_grad_(False)
-        self.decoder.to(self.device).eval().requires_grad_(False)
+        self.encoder.to(self.device).eval().requires_grad_(False)  # f32: units-only
+        self.decoder.to(self.device, self.compute_dtype).eval().requires_grad_(False)
+        # the conversion's encoder: the f32 one, or a copy cast to encoder_dtype
+        self.conv_encoder = (self.encoder if self.encoder_dtype == torch.float32
+                             else copy.deepcopy(self.encoder).to(self.encoder_dtype))
 
     # ------------------------------------------------------------- buckets
 
@@ -318,29 +352,32 @@ class Converter:
         never changes the true frames' units or audio."""
         hps, acfg = self.hps, self.acfg
         zlens = (tlens + hps.downsample - 1) // hps.downsample
-        logits = self.encoder(x, lengths=tlens)
+        logits = self.conv_encoder(x, lengths=tlens).float()
         units = unit_bits(logits, hps.enc_mode)
         z = (
             discretize(logits, hps.enc_mode, hps.gumbel_temp, None)
             if hps.enc_mode == "continues"
             else units.to(torch.float32)
-        )
+        )  # the decoder casts it to its dtype
         # Cross-target batched decode: fold the target axis into the batch
         # (batch-major, targets minor) so the decoder and its frame-rate GRU
         # run once at B * n_tgt rows, and the vocoder once over all of them.
         n_tgt, bsz = spk.shape
         z_all = z[:, None].expand(bsz, n_tgt, *z.shape[1:]).reshape(bsz * n_tgt, *z.shape[1:])
         spk_flat = spk.T.reshape(-1)
-        xh = self.decoder(z_all, spk_flat, lengths=zlens.repeat_interleave(n_tgt))
+        xh = self.decoder(z_all, spk_flat, lengths=zlens.repeat_interleave(n_tgt)).float()
         mean_all = tgt_mean[None].expand(bsz, -1, -1).reshape(bsz * n_tgt, 1, -1)
         std_all = tgt_std[None].expand(bsz, -1, -1).reshape(bsz * n_tgt, 1, -1)
         xh = torch.clamp(xh * std_all + mean_all, 0.0, 1.0)
-        wav = dsp_audio.spectrogram2wav(xh, acfg, n_iters=self.gl_iters)  # [B*n_tgt, n]
+        vocoder = dsp_audio.spectrogram2wav if self.feat == "lin" else dsp_audio.melspectrogram2wav
+        wav = vocoder(xh, acfg, n_iters=self.gl_iters)  # [B*n_tgt, n]
         pcm = torch.clamp(wav * 32767.0, -32768.0, 32767.0).to(torch.int16)
         return units, pcm.reshape(bsz, n_tgt, -1).transpose(0, 1)
 
     def _encode(self, x, tlens):
-        """Normalised features [B, T, F] -> units [B, T/ds, emb] int32."""
+        """Normalised features [B, T, F] -> units [B, T/ds, emb] int32, from
+        the f32 encoder in every configuration (the JAX package's units-only
+        programs run the uncast parameters)."""
         return unit_bits(self.encoder(x, lengths=tlens), self.hps.enc_mode)
 
     def _wav_features(self, pcm, src_mean, src_std, slens):
@@ -348,8 +385,8 @@ class Converter:
         [B, T, F], true frame counts [B]). ``slens`` ([B] true sample
         counts) gives exact tail reflection in the frontend."""
         y = pcm.to(torch.float32) * (1.0 / 32768.0)  # load_wav convention
-        _, mag = dsp_audio.wav_to_features(y, self.acfg, length=slens)
-        x = (mag - src_mean[:, None, :]) / src_std[:, None, :]
+        mel, mag = dsp_audio.wav_to_features(y, self.acfg, length=slens)
+        x = ((mag if self.feat == "lin" else mel) - src_mean[:, None, :]) / src_std[:, None, :]
         return x, 1 + slens // self.acfg.hop_length
 
     def _src_stats(self, n: int, src_speakers):
@@ -496,7 +533,7 @@ class Converter:
 
     @torch.inference_mode()
     def encode_units(self, feats_list: list[np.ndarray], src_speakers=None) -> list[np.ndarray]:
-        """Units for [T_i, n_feat] lin features without synthesis (ref
+        """Units for [T_i, n_feat] features without synthesis (ref
         enc_only). Raises when stats are on and ``src_speakers`` is
         missing. Chunks follow _chunk_batch, as convert_features_multi's
         do; the JAX package pads every chunk here to batch_size, which
@@ -520,9 +557,9 @@ class Converter:
         tgt_names: list[str] | None = None,
         src_speakers: list[str] | None = None,
     ):
-        """Convert [T_i, n_feat] lin features for several targets in one
-        pass (same returns as convert_wavs_multi). With stats on, both
-        ``src_speakers`` and ``tgt_names`` are required."""
+        """Convert [T_i, n_feat] features (the Converter's ``feat``) for
+        several targets in one pass (same returns as convert_wavs_multi).
+        With stats on, both ``src_speakers`` and ``tgt_names`` are required."""
         if self.stats is not None and (src_speakers is None or tgt_names is None):
             raise ValueError(
                 "speaker_norm is on (Converter has stats) but "
@@ -625,13 +662,14 @@ def _convert_planned(
             **bucket_stats}
 
 
-def load_corpus_split(dataset_path: str | Path, split: str = "test", limit: int | None = None):
-    """(features, utterance names, speakers) of a corpus split in
+def load_corpus_split(dataset_path: str | Path, split: str = "test", limit: int | None = None,
+                      feat: str = "lin"):
+    """(``feat`` features, utterance names, speakers) of a corpus split in
     (speaker, utterance) name order, the order in which the JAX package
     walks its h5 groups, so ``limit`` picks the same utterances."""
     from zerospeech_tts_tpu_torch.data.corpus import load_split
 
-    arena, index = load_split(dataset_path, split, "lin")
+    arena, index = load_split(dataset_path, split, feat)
     order = sorted(range(len(index["names"])), key=lambda i: (index["speakers"][i], index["names"][i]))
     if limit:
         order = order[:limit]
@@ -654,13 +692,13 @@ def convert_corpus(
     bucket_overhead_target: float | None = None,
     bucket_cost_model: str = "frames",
 ) -> dict:
-    """Corpus conversion and unit extraction from the lin features of a
-    port corpus directory (ref --test): ``<result>/units/<utt>.txt`` once
-    per utterance and ``<result>/<target>/<utt>.wav`` per target (units
-    only: no wavs). Sources are normalised with their own speaker's
+    """Corpus conversion and unit extraction from the features of a port
+    corpus directory (the Converter's ``feat``; ref --test):
+    ``<result>/units/<utt>.txt`` once per utterance and
+    ``<result>/<target>/<utt>.wav`` per target (units only: no wavs). Sources are normalised with their own speaker's
     statistics. ``adaptive_buckets=K`` fits <= K edges to these lengths
     for this call only. The result holds the plan's _bucket_stats."""
-    feats, names, srcs = load_corpus_split(dataset_path, split, limit)
+    feats, names, srcs = load_corpus_split(dataset_path, split, limit, feat=converter.feat)
     return _convert_planned(
         converter, names, [f.shape[0] for f in feats], result_dir, target_speakers,
         lambda: converter.encode_units(feats, src_speakers=srcs),

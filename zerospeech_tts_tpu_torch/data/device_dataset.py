@@ -1,9 +1,11 @@
 """Training data on the card (counterpart of
 ``zerospeech_tts_tpu/data/device_dataset.py``, ``DeviceDataset``).
 
-The train split's frames go to the device once as a flat arena
-``[total_frames, n_feat]`` with per-utterance (start, length, speaker,
-real weight) tensors, speaker-normalised at load when ``hps.speaker_norm``.
+The train split's frames of one feature (``lin`` or ``mel``) go to the
+device once as a flat arena ``[total_frames, n_feat]`` (f32, or bf16 to
+halve its bytes; batches come out in f32 either way) with per-utterance
+(start, length, speaker, real weight) tensors, speaker-normalised at load
+when ``hps.speaker_norm``.
 :meth:`DeviceDataset.sample_batch` draws a batch with a ``torch.Generator``
 on the device, with no host traffic:
 
@@ -42,14 +44,14 @@ def check_speaker_ids(speakers: dict, hps: Hps) -> None:
 
 
 def _gather(arena, starts, seg: int):
-    """[B] start frames -> [B, seg, F] segments of the arena."""
+    """[B] start frames -> [B, seg, F] f32 segments of the arena."""
     idx = starts[:, None] + torch.arange(seg, device=arena.device)[None, :]
-    return arena[idx]
+    return arena[idx].float()
 
 
 class DeviceDataset:
     def __init__(self, arena, starts, lens, spk, real_w, hps: Hps):
-        self.arena = arena    # [total_frames, F] f32 on the device
+        self.arena = arena    # [total_frames, F] f32 or bf16 on the device
         self.starts = starts  # [U] int64
         self.lens = lens      # [U] int64
         self.spk = spk        # [U] int64
@@ -63,18 +65,23 @@ class DeviceDataset:
         hps: Hps,
         target_speakers: list[str] | None = None,
         device: str | torch.device = "cuda",
+        feat: str = "lin",
+        dtype: torch.dtype = torch.float32,
     ) -> "DeviceDataset":
-        """The train split's ``lin`` features of a corpus directory
-        (data/corpus.py), speaker-normalised with its stats when
-        ``hps.speaker_norm``."""
+        """The train split's ``feat`` features (``lin`` or ``mel``) of a
+        corpus directory (data/corpus.py), speaker-normalised with that
+        feature's stats when ``hps.speaker_norm``, in an arena of ``dtype``
+        (f32, or bf16: the normalised frames rounded once, at load)."""
+        if feat not in ("lin", "mel"):
+            raise ValueError(f"feat must be lin or mel, got {feat!r}")
         speakers = load_speaker_map(corpus)
         check_speaker_ids(speakers, hps)
-        stats = SpeakerStats.load_corpus(corpus, "lin") if hps.speaker_norm else None
-        arena, index = load_split(corpus, "train", "lin")
+        stats = SpeakerStats.load_corpus(corpus, feat) if hps.speaker_norm else None
+        arena, index = load_split(corpus, "train", feat)
         if arena.shape[1] != hps.n_feat:
             raise ValueError(
-                f"hps.n_feat={hps.n_feat} but the corpus 'lin' features have "
-                f"{arena.shape[1]} bins: check the hps"
+                f"hps.n_feat={hps.n_feat} but the corpus {feat!r} features have "
+                f"{arena.shape[1]} bins: check --feat / hps"
             )
         tgt = set(target_speakers or [])
         chunks, spks, real = [], [], []
@@ -96,7 +103,7 @@ class DeviceDataset:
             real_w[:] = 1.0  # no targets known -> every speaker is "real"
         dev = torch.device(device)
         as_t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
-        return cls(as_t(np.concatenate(chunks)), as_t(starts), as_t(lens),
+        return cls(as_t(np.concatenate(chunks)).to(dtype), as_t(starts), as_t(lens),
                    as_t(np.asarray(spks, np.int64)), as_t(real_w), hps)
 
     def _sample(self, weights, gen, batch: int):

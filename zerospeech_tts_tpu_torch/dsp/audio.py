@@ -5,7 +5,9 @@ and ``utils.py spectrogram2wav``):
     wav -> preemphasis(0.97) -> centred STFT(1024, 200, 800) with
     length-aware mirror padding -> |mag| and 80-bin mel -> dB-norm to [0, 1]
 
-and back: denormalise -> amp ** 1.2 -> fast Griffin-Lim -> de-emphasis.
+and back: denormalise -> amp ** 1.2 -> fast Griffin-Lim -> de-emphasis,
+from a linear spectrogram, or from a mel spectrogram lifted to linear
+frequency through the mel basis's pseudo-inverse first.
 
 Public functions take the JAX package's layout: signals [B, n] (or [n]),
 spectrograms time-major [B, T, F]. The STFT is the window-folded real-DFT
@@ -24,7 +26,7 @@ import numpy as np
 import torch
 
 from zerospeech_tts_tpu_torch.config import AudioConfig
-from zerospeech_tts_tpu_torch.dsp.mel import mel_filterbank
+from zerospeech_tts_tpu_torch.dsp.mel import mel_filterbank, mel_inverse_basis
 
 # ---------------------------------------------------------------------------
 # static per-config constants (host numpy, cached)
@@ -45,6 +47,12 @@ def _window(cfg: AudioConfig) -> np.ndarray:
 @functools.lru_cache(maxsize=8)
 def _mel_basis(cfg: AudioConfig) -> np.ndarray:
     return mel_filterbank(cfg.sr, cfg.n_fft, cfg.n_mels, cfg.fmin, cfg.effective_fmax)
+
+
+@functools.lru_cache(maxsize=8)
+def _mel_pinv(cfg: AudioConfig) -> np.ndarray:
+    """[n_freq, n_mels] pseudo-inverse of the mel basis (mel -> linear)."""
+    return mel_inverse_basis(_mel_basis(cfg))
 
 
 @functools.lru_cache(maxsize=8)
@@ -212,4 +220,25 @@ def spectrogram2wav(mag_norm: torch.Tensor, cfg: AudioConfig, n_iters: int | Non
     from zerospeech_tts_tpu_torch.ops.griffin_lim import griffin_lim
 
     amp = db_norm_to_amp(mag_norm, cfg) ** cfg.gl_power
+    return de_emphasis(griffin_lim(amp.contiguous(), cfg, n_iters=n_iters), cfg.preemphasis)
+
+
+def mel_to_gl_magnitudes(mel_norm: torch.Tensor, cfg: AudioConfig) -> torch.Tensor:
+    """Normalised mel spectrograms [B, T, n_mels] -> the linear magnitudes
+    [B, T, n_freq] Griffin-Lim takes: denormalise, lift through the mel
+    basis's pseudo-inverse (a plain matrix product, clamped at 1e-10), then
+    ** gl_power (the JAX ``melspectrogram2wav`` up to its Griffin-Lim)."""
+    pinv = torch.from_numpy(_mel_pinv(cfg)).to(mel_norm.device)
+    amp = torch.clamp(db_norm_to_amp(mel_norm, cfg) @ pinv.T, min=1e-10)
+    return amp ** cfg.gl_power
+
+
+def melspectrogram2wav(mel_norm: torch.Tensor, cfg: AudioConfig, n_iters: int | None = None):
+    """Normalised mel spectrograms [B, T, n_mels] -> wavs [B, (T-1)*hop]:
+    :func:`mel_to_gl_magnitudes` -> Griffin-Lim (ops/griffin_lim.py, the
+    same kernel as the linear route) -> de-emphasis (ref utils.py
+    melspectrogram2wav)."""
+    from zerospeech_tts_tpu_torch.ops.griffin_lim import griffin_lim
+
+    amp = mel_to_gl_magnitudes(mel_norm, cfg)
     return de_emphasis(griffin_lim(amp.contiguous(), cfg, n_iters=n_iters), cfg.preemphasis)

@@ -5,7 +5,7 @@ Same layout as the JAX bundle, except that the orbax ``model/`` tree is
 one ``model.npz`` (a host with the card has no JAX/orbax to read it):
 
     <dir>/hps.json        # full Hps dict + "audio" block (load_configs shape)
-    <dir>/meta.json       # {"version", "feat", "step"}
+    <dir>/meta.json       # {"version", "feat" ("lin" or "mel"), "step"}
     <dir>/speakers.json   # name -> id
     <dir>/stats.npz       # per-speaker mean/std ("<spk>|mean" keys); only
                           #   when the model was trained with speaker_norm
@@ -36,6 +36,7 @@ class ExportBundle:
     dec: dict
     speakers: dict[str, int]
     stats: SpeakerStats | None  # when the model uses speaker_norm
+    feat: str  # the features the model was trained on: "lin" or "mel"
     step: int | None
 
 
@@ -48,9 +49,14 @@ def save_export(
     speakers: dict[str, int],
     stats: SpeakerStats | None = None,
     step: int | None = None,
+    feat: str = "lin",
 ) -> dict:
     """Write the bundle (``enc``/``dec``: flax-layout trees, with or
-    without the ``params`` level). Overwrites an existing bundle."""
+    without the ``params`` level); ``feat`` (``lin`` or ``mel``, the
+    features the model was trained on) goes into meta.json. Overwrites an
+    existing bundle."""
+    _check_feat(feat, "save_export")
+    _check_width(feat, hps, acfg, "save_export")
     if hps.speaker_norm and stats is None:
         raise ValueError(
             "hps.speaker_norm is on but no stats were given — a bundle "
@@ -62,7 +68,7 @@ def save_export(
     cfg["audio"] = dataclasses.asdict(acfg)
     (out / "hps.json").write_text(json.dumps(cfg, indent=2) + "\n")
     (out / "meta.json").write_text(
-        json.dumps({"version": EXPORT_VERSION, "feat": "lin", "step": step}) + "\n"
+        json.dumps({"version": EXPORT_VERSION, "feat": feat, "step": step}) + "\n"
     )
     (out / "speakers.json").write_text(json.dumps(speakers, indent=2) + "\n")
     if stats is not None:
@@ -77,6 +83,7 @@ def save_export(
         "path": str(out),
         "params_bytes": int(sum(a.nbytes for a in flat.values())),
         "n_speakers": len(speakers),
+        "feat": feat,
         "step": step,
     }
 
@@ -88,12 +95,24 @@ def export_state(
     state,
     speakers: dict[str, int],
     stats: SpeakerStats | None = None,
+    feat: str = "lin",
 ) -> dict:
     """The bundle of a training state (train/solver.py ``TrainState``):
     its encoder and decoder at its step."""
     tree = to_flax(state.enc.state_dict(), state.dec.state_dict())
     return save_export(out_dir, hps, acfg, tree["enc"], tree["dec"], speakers, stats=stats,
-                       step=state.step)
+                       step=state.step, feat=feat)
+
+
+def _check_feat(feat: str, where: str) -> None:
+    if feat not in ("lin", "mel"):
+        raise ValueError(f"{where}: feat={feat!r}, expected 'lin' or 'mel'")
+
+
+def _check_width(feat: str, hps: Hps, acfg: AudioConfig, where: str) -> None:
+    """A mel model reads (and writes) the mel width."""
+    if feat == "mel" and hps.n_feat != acfg.n_mels:
+        raise ValueError(f"{where}: feat='mel' but hps.n_feat={hps.n_feat} != audio.n_mels={acfg.n_mels}")
 
 
 def load_export(bundle_dir: str | Path) -> ExportBundle:
@@ -103,10 +122,8 @@ def load_export(bundle_dir: str | Path) -> ExportBundle:
     meta = json.loads((out / "meta.json").read_text())
     if meta.get("version", 0) > EXPORT_VERSION:
         raise ValueError(f"bundle {out} has version {meta['version']} > supported {EXPORT_VERSION}")
-    if meta.get("feat", "lin") != "lin":
-        raise NotImplementedError(
-            f"bundle {out} has feat={meta['feat']!r}: only 'lin' (spectrogram2wav) is ported"
-        )
+    feat = meta.get("feat", "lin")
+    _check_feat(feat, f"bundle {out}")
     if not (out / "model.npz").exists():
         raise FileNotFoundError(
             f"{out} has no model.npz"
@@ -115,6 +132,7 @@ def load_export(bundle_dir: str | Path) -> ExportBundle:
                if (out / "model").is_dir() else "")
         )
     hps, acfg = load_configs(out / "hps.json")
+    _check_width(feat, hps, acfg, f"bundle {out}")
     speakers = json.loads((out / "speakers.json").read_text())
     stats = None
     if (out / "stats.npz").exists():
@@ -135,5 +153,6 @@ def load_export(bundle_dir: str | Path) -> ExportBundle:
         dec=tree["dec"],
         speakers=speakers,
         stats=stats,
+        feat=feat,
         step=meta.get("step"),
     )

@@ -7,6 +7,10 @@ block; pixel_shuffle_1d x2 per stage undoes the encoder's x8 downsample.
 ``lengths`` ([B] true LATENT row counts) re-fills pad rows with reflected
 true rows before each conv so bucket padding cannot bleed into true frames
 (the GRU is forward-only, so it needs no mask).
+
+The module runs in the dtype of its parameters (``Decoder(hps).to(dtype)``:
+f32, or bf16): the latent is cast to it, and the spectrogram comes out in
+it.
 """
 
 from __future__ import annotations
@@ -39,7 +43,12 @@ class Decoder(nn.Module):
         self.rnn = GRU(c + e, c)
         self.out = nn.Linear(c, h.n_feat)
 
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.out.weight.dtype
+
     def forward(self, z: torch.Tensor, spk: torch.Tensor, lengths=None) -> torch.Tensor:
+        z = z.to(self.dtype)
         emb = self.spk_embed(spk)
         L = lengths
 

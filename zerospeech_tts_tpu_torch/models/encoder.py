@@ -13,6 +13,11 @@ row's true tail. With the bucket rule pad == 0 or pad >= 4 input frames
 
 ``train=True`` applies ``enc_dp`` dropout after each residual stage (JAX
 encoder.py:59), drawn from ``noise`` (models/layers.py).
+
+The module runs in the dtype of its parameters (``Encoder(hps).to(dtype)``:
+f32, or bf16 as in the JAX Converter's bf16 configs): the input is cast to
+it, the convolutions and dense layers run in it and the BiGRU runs kernel
+2 in that mode (f32 state either way); the logits come out in it.
 """
 
 from __future__ import annotations
@@ -40,9 +45,14 @@ class Encoder(nn.Module):
         self.rnn = BiGRU(h.emb_size, h.emb_size // 2)
         self.head = nn.Linear(h.emb_size, 2 * h.emb_size)
 
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.head.weight.dtype
+
     def forward(self, x: torch.Tensor, lengths=None, train: bool = False, noise=None) -> torch.Tensor:
         h = self.hps
         L = lengths
+        x = x.to(self.dtype)
 
         def fill(v, n):
             return v if n is None else mirror_fill_time(v, n)

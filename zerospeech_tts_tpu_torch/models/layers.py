@@ -133,10 +133,11 @@ class ConvBank(nn.Module):
 class GRU(nn.Module):
     """GRU over time with the input projections for ALL steps hoisted into
     one matmul (``wi``) and the recurrence in the GRU kernel
-    (ops/gru.py). Parameters follow the flax layout: ``wh`` [H, 3H], ``bh``
-    [3H], gate order r, z, n. Under grad the scan goes through
-    :class:`GRUScan` (kernel 3 backward); a masked scan is inference-only
-    and raises under grad, as in the JAX package."""
+    (ops/gru.py), in the module's dtype (f32, or bf16 with an f32 state).
+    Parameters follow the flax layout: ``wh`` [H, 3H], ``bh`` [3H], gate
+    order r, z, n. Under grad the scan goes through :class:`GRUScan`
+    (kernel 3 backward); a masked scan is inference-only and raises under
+    grad, as in the JAX package."""
 
     def __init__(self, in_features: int, hidden: int, reverse: bool = False):
         super().__init__()

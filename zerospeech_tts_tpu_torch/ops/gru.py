@@ -14,6 +14,11 @@ so each row's first real step sees h0 = 0 (padding-invariant bucketed
 encoding). :func:`gru_scan` launches the kernel on a CUDA tensor and runs
 :func:`gru_scan_plain` on a CPU tensor; any other device raises.
 
+Two storage types, as ``pallas_gru_scan``: f32, or bf16 ``xw``/``wh``/``bh``
+and ``ys`` (``ops.KERNELS["gru_bf16"]``) with the state kept in f32 across
+the whole scan, each step's product taking h rounded to bf16 (exact
+products, f32 sums) and ``ys`` storing h rounded to bf16.
+
 Training differentiates through :class:`GRUScan`: kernel 2 forward,
 kernel 3 (:func:`gru_bwd`, plain version :func:`gru_bwd_plain`) backward.
 Backward math (``pallas_gru.py:195-207``), walking the scan's steps
@@ -35,8 +40,11 @@ import torch
 
 from zerospeech_tts_tpu_torch.ops import build
 
-launches = 0  # kernel-2 launches through gru_scan (one cooperative launch per scan)
+launches = 0  # kernel-2 f32 launches through gru_scan (one cooperative launch per scan)
+bf16_launches = 0  # kernel-2 bf16 launches through gru_scan
 bwd_launches = 0  # kernel-3 launches through gru_bwd (one per whole backward pass)
+
+_DTYPES = (torch.float32, torch.bfloat16)  # kernel 2's storage types
 
 
 def _check_args(xw, wh, bh, lengths, reverse):
@@ -55,13 +63,18 @@ def _check_args(xw, wh, bh, lengths, reverse):
 
 def gru_scan_plain(xw, wh, bh, lengths=None, *, reverse: bool = False):
     """Plain PyTorch version: xw [B, T, 3H], wh [H, 3H], bh [3H], lengths
-    [B] -> ys [B, T, H]."""
+    [B] -> ys [B, T, H] of xw's dtype. In bf16 the state and the gates are
+    f32, each step's product takes h rounded to bf16 and sums in f32 (an
+    f32 product of bf16 values: a bf16 ``@`` would round its sums), and
+    ``ys`` stores h rounded to bf16. In f32 every cast is a no-op."""
     b, t, h = _check_args(xw, wh, bh, lengths, reverse)
-    hcur = xw.new_zeros(b, h)
+    ct = torch.float32 if xw.dtype == torch.bfloat16 else xw.dtype  # the state's and the gates' type
+    hcur = xw.new_zeros(b, h, dtype=ct)
     ys = xw.new_empty(b, t, h)
+    wh_c, bh_c = wh.to(ct), bh.to(ct)
     for ti in range(t - 1, -1, -1) if reverse else range(t):
-        hw = hcur @ wh + bh
-        xr, xz, xn = xw[:, ti].split(h, dim=-1)
+        hw = hcur.to(wh.dtype).to(ct) @ wh_c + bh_c
+        xr, xz, xn = xw[:, ti].to(ct).split(h, dim=-1)
         hr, hz, hn = hw.split(h, dim=-1)
         r = torch.sigmoid(xr + hr)
         z = torch.sigmoid(xz + hz)
@@ -78,54 +91,63 @@ _NO_SPREAD = -1  # zs_gru_scan / zs_gru_bwd: no spread of wh over the co-residen
 _BAR_WORDS = 32  # zs_gru_scan: barrier words a batch group (a 128-byte line each)
 
 
-def scan_plan(device: torch.device, b: int, h: int) -> tuple[int, ...]:
-    """Diagnostic: the spread of kernel 2 that ``zs_gru_scan`` picks for b
-    rows on ``device`` (csrc/gru.cu ``make_plan``): hidden columns a block,
-    column groups, batch rows a block, batch groups, rows staged a chunk, a
-    block's dynamic shared memory in bytes, rows a launch, and 1 when a
-    thread holds its share of wh in registers; all 0 when none fits."""
+def scan_plan(device: torch.device, b: int, h: int, dtype: torch.dtype = torch.float32) -> tuple[int, ...]:
+    """Diagnostic: the spread of kernel 2 that ``zs_gru_scan`` (or, for bf16,
+    ``zs_gru_scan_bf16``) picks for b rows on ``device`` (csrc/gru.cu
+    ``make_plan``): hidden columns a block, column groups, batch rows a
+    block, batch groups, rows staged a chunk, a block's dynamic shared
+    memory in bytes, rows a launch, and 1 when a thread holds its share of
+    wh in registers; all 0 when none fits."""
     lib = build.load("gru")
     plan = torch.zeros(8, dtype=torch.int32)
     with torch.cuda.device(device):
-        err = build.bind(lib, "zs_gru_scan_plan", 1, 2, stream=False)(plan.data_ptr(), b, h)
+        err = build.bind(lib, "zs_gru_scan_plan", 1, 3, stream=False)(
+            plan.data_ptr(), b, h, int(dtype == torch.bfloat16))
     build.check(lib, err, "gru plan")
     return tuple(plan.tolist())
 
 
 def gru_scan(xw, wh, bh, lengths=None, *, reverse: bool = False):
     """Same contract as :func:`gru_scan_plain`; kernel 2 (csrc/gru.cu) on a
-    CUDA tensor: ONE cooperative launch runs all T steps (at most a block
+    CUDA tensor, all in f32 or all in bf16 (an f32 state buffer beside the
+    bf16 ``ys``): ONE cooperative launch runs all T steps (at most a block
     per SM, each owning some hidden columns and batch rows with its columns
     of wh on chip, a barrier per batch group between steps). Any B (a
     batch too large for the shared memory runs in slices, a launch each);
-    raises ValueError when a block's columns of wh (ceil(H / SMs) x 3H f32,
-    plus one staged row of h) exceed its shared memory on every spread (H
-    above ~1,500 on an H100)."""
+    raises ValueError when a block's columns of wh (ceil(H / SMs) x 3H
+    values, plus one staged f32 row of h) exceed its shared memory on every
+    spread (H above ~1,500 in f32, ~2,100 in bf16 on an H100)."""
     if xw.device.type == "cpu":
         return gru_scan_plain(xw, wh, bh, lengths, reverse=reverse)
     b, t, h = _check_args(xw, wh, bh, lengths, reverse)
-    build.require(xw, "gru xw", (b, t, 3 * h))
-    build.require(wh, "gru wh", (h, 3 * h), device=xw.device)
-    build.require(bh, "gru bh", (3 * h,), device=xw.device)
+    dt = xw.dtype if xw.dtype in _DTYPES else torch.float32  # anything else fails require below
+    build.require(xw, "gru xw", (b, t, 3 * h), dtype=dt)
+    build.require(wh, "gru wh", (h, 3 * h), dtype=dt, device=xw.device)
+    build.require(bh, "gru bh", (3 * h,), dtype=dt, device=xw.device)
     if lengths is not None:
         build.require(lengths, "gru lengths", (b,), dtype=torch.int32, device=xw.device)
-    ys = torch.empty(b, t, h, device=xw.device)
+    ys = torch.empty(b, t, h, device=xw.device, dtype=dt)
     n_sm = torch.cuda.get_device_properties(xw.device).multi_processor_count
     bar = torch.empty(_BAR_WORDS * n_sm, dtype=torch.int32, device=xw.device)  # scratch: group counters
     n_launches = ctypes.c_int(0)
     lib = build.load("gru")
-    fn = build.bind(lib, "zs_gru_scan", 7, 4)
-    err = fn(
-        xw.data_ptr(), wh.data_ptr(), bh.data_ptr(),
-        None if lengths is None else lengths.data_ptr(), ys.data_ptr(), bar.data_ptr(),
-        ctypes.addressof(n_launches), b, t, h, int(reverse), build.stream_of(xw),
-    )
+    ptrs = [xw.data_ptr(), wh.data_ptr(), bh.data_ptr(),
+            None if lengths is None else lengths.data_ptr(), ys.data_ptr()]
+    if dt == torch.bfloat16:
+        state = torch.empty(2, b, h, device=xw.device)  # scratch: the f32 state a step hands on
+        ptrs.append(state.data_ptr())
+    fn = build.bind(lib, "zs_gru_scan" if dt == torch.float32 else "zs_gru_scan_bf16", len(ptrs) + 2, 4)
+    err = fn(*ptrs, bar.data_ptr(), ctypes.addressof(n_launches), b, t, h, int(reverse),
+             build.stream_of(xw))
     if err == _NO_SPREAD:
-        raise ValueError(f"gru_scan: H={h} does not fit: a block's columns of wh exceed its shared "
-                         "memory on every spread over the co-resident blocks")
+        raise ValueError(f"gru_scan: H={h} ({dt}) does not fit: a block's columns of wh exceed its "
+                         "shared memory on every spread over the co-resident blocks")
     build.check(lib, err, "gru kernel")
-    global launches
-    launches += n_launches.value
+    global launches, bf16_launches
+    if dt == torch.float32:
+        launches += n_launches.value
+    else:
+        bf16_launches += n_launches.value
     return ys
 
 

@@ -1,7 +1,8 @@
 """The seeded flagship workloads that ``chip_smoke.py``,
 ``tools/profile_slice.py`` and ``tools/profile_train.py`` run, and the
 measurement helpers they share (CUDA-event timer, synchronized wall
-clock, card name, profiler kernel rows).
+clock, card name, profiler kernel rows, a control for kernel 2's bf16
+mode).
 
 Conversion: 8 synthetic "voiced" wavs of 1.5-6.4 s converted to V001 and
 V002 by a bundle at flagship width (``hps/zerospeech.json``) whose weights
@@ -100,6 +101,31 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def gru_scan_bf16_state(xw, wh, bh, lengths=None, *, reverse: bool = False):
+    """A control for kernel 2's bf16 mode, never called by the port: the
+    plain bf16 recurrence (ops/gru.py ``gru_scan_plain``) with the state
+    rounded to bf16 after every step, the arithmetic of a bf16 ``lax.scan``
+    (``pallas_gru.py:39-41``). A kernel that rounded its state between
+    steps would sit as far from the plain version as this does."""
+    import torch
+
+    b, t, h3 = xw.shape
+    h = h3 // 3
+    hcur = xw.new_zeros(b, h, dtype=torch.float32)
+    ys = xw.new_empty(b, t, h)
+    wh_f, bh_f = wh.float(), bh.float()
+    for ti in range(t - 1, -1, -1) if reverse else range(t):
+        hr, hz, hn = (hcur @ wh_f + bh_f).split(h, dim=-1)  # hcur holds bf16 values
+        xr, xz, xn = xw[:, ti].float().split(h, dim=-1)
+        r, z = torch.sigmoid(xr + hr), torch.sigmoid(xz + hz)
+        hnew = ((1.0 - z) * torch.tanh(xn + r * hn) + z * hcur).to(torch.bfloat16).float()
+        if lengths is not None:
+            hnew = torch.where((ti < lengths)[:, None], hnew, hcur)
+        ys[:, ti] = hnew
+        hcur = hnew
+    return ys
 
 
 def sync_wall(fn) -> float:
