@@ -5,8 +5,10 @@
 
 1. Refuses to run without a CUDA card (or outside a checkout of the repo).
 2. Builds the hand-written kernels from their four csrc/ sources with nvcc
-   (sm_90a), all at once, and prints kernel 2's spread and its widest H in
-   f32 and in bf16.
+   (sm_90a) and the native wav reader (native/wav_reader.cpp, g++), all at
+   once, and prints kernel 2's spread and the widest H whose columns of wh
+   stay whole on chip in f32 and in bf16 (every shipped path's spread
+   keeps them whole: Hs = H, checked for kernels 2 and 3).
 3. Holds each kernel against its plain PyTorch version on the card at its
    path's flagship shapes (kernel 1 also on full-scale frames) and times
    both, beside the card's least time for
@@ -18,6 +20,12 @@
    at the test shapes and its widest H, within 2^-8 of its plain version
    and far nearer it than a control that rounds the state to bf16 between
    steps, timed beside its bound and cuDNN nn.GRU forward in bf16.
+3b. Wide H: kernel 2 in f32 at H = 2,048 and 4,096 and in bf16 at 2,304
+   (B=16, T=64, forward and reverse masked) and kernel 3 at H = 2,048
+   (B=16, T=32) run their wide mode (Hs < H rows of wh on chip, the rest
+   read through L2 each step), one counted launch each, held against
+   their plain versions with the bars above; Hs, ms, the bound and the L2
+   bytes a step are printed.
 4. Conversion path: converts a seeded 8-wav, 2-target corpus at flagship
    width (hps/zerospeech.json, random weights from a seed, GL-100) through
    the port's CLI, counting kernel launches and keeping each kernel's
@@ -59,7 +67,17 @@
    with the CPU replaying the card's hard decisions and few of its own
    differing. Then a mel run at flagship width (n_feat = 80): preprocess ->
    train1 -> train2 --data-bf16 -> export --feat mel -> convert, kernel
-   4's lifted magnitudes held against a float64 lift.
+   4's lifted magnitudes held against a float64 lift. These runs train
+   from the arena on the card (--device-data).
+6b. Host data path (the JAX package's default training input) at flagship
+   width: the 6-speaker training corpus through preprocess -index_path
+   --workers 2 (two shard subprocesses running kernel 1, then the merge),
+   held against a single-process build (arenas within 1e-6, stats within
+   1e-10, the sorted speaker map, the same segment index); train1 from the
+   SegmentLoader (4 iterations a phase) with --check-numerics --profile,
+   whose trace must name kernels 2 and 3; train2 (one GAN cycle) from the
+   loader; then steps/s of the loader route beside the --device-data route
+   on the same 20-iteration schedule (printed, no bar).
 7. Prints the card (nvidia-smi name, power limit), one JSON line with the
    kernels' results (``launches``: the count on the path the kernel's slice
    ported, conversion or training; ``launches_by_path``: each path's own
@@ -514,36 +532,42 @@ def main() -> None:
           f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
 
     # ------------------------------------------------------------- build
+    from zerospeech_tts_tpu_torch.data import native
+
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(ops.SOURCES)) as pool:  # one nvcc per source, all at once
+    with ThreadPoolExecutor(len(ops.SOURCES) + 1) as pool:  # one nvcc per source and g++, all at once
+        wav_reader = pool.submit(native.build)
         list(pool.map(build.load, ops.SOURCES))
+        wav_reader = wav_reader.result()
     print(f"build: {time.perf_counter() - t0:.2f} s wall for {len(ops.KERNELS)} kernels from "
-          f"{len(ops.SOURCES)} sources", flush=True)
+          f"{len(ops.SOURCES)} sources and the wav reader ({wav_reader.name})", flush=True)
     for src in ops.SOURCES:
         print(f"  nvcc {src}.cu: {build.build_seconds[src]:.2f} s", flush=True)
         for line in build.build_log.get(src, "").splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {src}: {line.strip()}")
     for dt in (torch.float32, torch.bfloat16):
-        for b in (1, 2, 6, 16, 32, 64):  # kernel 2: the conversion paths' rows, the test shape, training's
-            kc, n_k, nb, n_b, cb, smem, rows, wreg = gru.scan_plan(dev, b, 512, dt)
+        for b in (1, 2, 6, 16, 32, 64, 128, 192, 256):  # kernel 2: the paths' rows, the test shape, training's
+            kc, n_k, nb, n_b, cb, smem, rows, wreg, hs, _ = gru.scan_plan(dev, b, 512, dt)
             print(f"  gru {str(dt)[6:]} recurrence B={b} H=512: {n_k} column groups x {n_b} batch groups = "
                   f"{n_k * n_b} blocks of {kc} columns x {nb} rows ({cb} staged at a time), {smem} B dynamic "
-                  f"shared memory each, wh in {'registers and ' if wreg else ''}shared memory, {rows} rows "
-                  "a launch")
+                  f"shared memory each, wh in {'registers and ' if wreg else ''}shared memory (Hs {hs}), "
+                  f"{rows} rows a launch")
+            check(hs == 512, f"gru {dt} B={b} H=512: the spread keeps {hs} of 512 rows of wh on chip")
     widest = {}
-    for dt in (torch.float32, torch.bfloat16):  # the widest H kernel 2 takes (wider raises ValueError)
+    for dt in (torch.float32, torch.bfloat16):  # the widest H whose columns stay whole (wider: wide mode)
         lo, hi = 512, 4096
         while lo < hi:
             mid = (lo + hi + 1) // 2
-            lo, hi = (mid, hi) if gru.scan_plan(dev, 16, mid, dt)[0] else (lo, mid - 1)
+            lo, hi = (mid, hi) if gru.scan_plan(dev, 16, mid, dt)[8] == mid else (lo, mid - 1)
         widest[str(dt)[6:]] = lo
-    print(f"  gru widest H that fits (B=16): {widest}", flush=True)
+    print(f"  gru widest H with whole columns on chip (B=16): {widest}", flush=True)
     for b, h in ((32, 512), (64, 512), (128, 512)):  # kernel 3's recurrence, training shapes
-        kc, nb, cb, n_k, n_b, smem = gru.bwd_plan(dev, b, h)
+        kc, nb, cb, n_k, n_b, smem, hs = gru.bwd_plan(dev, b, h)
         print(f"  gru_bwd recurrence B={b} H={h}: {n_k} column groups x {n_b} batch groups = "
               f"{n_k * n_b} blocks of {kc} columns x {nb} rows ({cb} staged at a time), "
-              f"{smem} B dynamic shared memory each")
+              f"{smem} B dynamic shared memory each (Hs {hs})")
+        check(hs == h, f"gru_bwd B={b} H={h}: the spread keeps {hs} of {h} rows of wh on chip")
 
     # ------------------------------------------- kernels vs plain versions
     cfg = AudioConfig()
@@ -711,6 +735,8 @@ def main() -> None:
     med = {k: statistics.median(runs) for k, (_, runs) in pairs.items()}
     results["gru_vs_cudnn"] = {k: dict(median=med[k], runs=runs) for k, (_, runs) in pairs.items()}
     results["gru"]["library_ms"] = med["cudnn_fwd_ms"]  # the one cuDNN forward reading of this run
+    wide = wide_h(dev)
+
     print(f"GRUScan fwd+bwd (projection + kernels 2, 3) {med['gruscan_fwd_bwd_ms']:.3f} ms vs cuDNN nn.GRU "
           f"fwd+bwd {med['cudnn_fwd_bwd_ms']:.3f} ms (B=32 T=128 I=640, medians of 7): "
           f"{med['gruscan_fwd_bwd_ms'] / med['cudnn_fwd_bwd_ms']:.3f}x; projection + kernel 2 "
@@ -884,9 +910,11 @@ def main() -> None:
     # ---------------------------------------------- training path, end to end
     train = train_path(OUT / "train")
     mel = mel_path(OUT / "mel")
+    host = host_data_path(OUT / "host")
     by_path = {"conversion": conv_launches, **bf16.pop("launches"), "serve": served.pop("launches"),
                **corpus.pop("launches"), "training": train.pop("launches"),
-               "convert_after_training": train.pop("convert_launches"), **mel.pop("launches")}
+               "convert_after_training": train.pop("convert_launches"), **mel.pop("launches"),
+               "host_data": host.pop("launches")}
     path["gru_bwd"] = train.pop("path")
     step_check = card_vs_cpu_steps()
     check("jax" not in sys.modules, "jax was imported")
@@ -910,7 +938,7 @@ def main() -> None:
              reference_unit_agreement=agree,
              reference_pcm_rel_l2=pcm_rel, corpus=corpus, training=train,
              gru_bf16_like_for_like=results["gru_bf16_vs_cudnn"], gru_bf16_control=BF16_CONTROL,
-             bf16_routes=bf16, serve=served, mel=mel,
+             bf16_routes=bf16, serve=served, mel=mel, wide_h=wide, host_data=host,
              card_vs_cpu_steps=step_check, card=card_line()), indent=2) + "\n")
     print(card_line())
     print(json.dumps({"kernels": kernels}))
@@ -1163,11 +1191,14 @@ def mel_path(work: Path, device: str = "cuda") -> dict:
     ops.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    cli.main(["preprocess", "--corpus", str(corpus), "-dataset_path", ds, *c])
-    r1 = cli.main(["train1", "-dataset_path", ds, "-ckpt_dir", ck, "--iters-override", "2", "--feat", "mel", *c])
+    idx = ["-index_path", str(work / "idx.json")]
+    cli.main(["preprocess", "--corpus", str(corpus), "-dataset_path", ds, *idx, "--n-samples", "1000", *c])
+    c_train = [*c, *idx, "--device-data"]  # the arena on the card (the loader: host_data_path)
+    r1 = cli.main(["train1", "-dataset_path", ds, "-ckpt_dir", ck, "--iters-override", "2", "--feat", "mel",
+                   *c_train])
     r1.pop("state")
     r2 = cli.main(["train2", "-dataset_path", ds, "-ckpt_dir", ck, "--iters-override", "1", "--feat", "mel",
-                   "--data-bf16", "--targets", *TARGETS, *c])
+                   "--data-bf16", "--targets", *TARGETS, *c_train])
     r2.pop("state")
     ex = cli.main(["export", "-dataset_path", ds, "-ckpt_dir", ck, "--out", bundle, "--feat", "mel", *c])
     torch.cuda.synchronize()
@@ -1253,7 +1284,8 @@ def corpus_path(work: Path, bundle: Path, device: str = "cuda") -> dict:
     ds, dev = str(work / "ds"), ["--device", device]
     src = ["--from-export", str(bundle), "-dataset_path", ds]
     routes = {
-        "corpus_preprocess": ["preprocess", "--corpus", str(corpus), "-dataset_path", ds],
+        "corpus_preprocess": ["preprocess", "--corpus", str(corpus), "-dataset_path", ds,  # no train
+                              "-index_path", str(work / "idx.json")],  # split: no index is written
         "corpus_units_only": ["convert", *src, "-result_dir", str(work / "a"), "--units-only"],
         "corpus_uniform": ["convert", *src, "-result_dir", str(work / "b"), "--target", *TARGETS],
         "corpus_adaptive": ["convert", *src, "-result_dir", str(work / "c"), "--target", *TARGETS,
@@ -1423,6 +1455,7 @@ def corpus_path(work: Path, bundle: Path, device: str = "cuda") -> dict:
         check(err <= 1e-4, f"gru B={b}: max_abs_err {err}")
         us = 1e3 * cuda_ms(lambda: gru.gru_scan(xw, wh, bh), 5) / 64
         rows_a_launch = gru.scan_plan(xw.device, b, 512)[6]
+        check(gru.scan_plan(xw.device, b, 512)[8] == 512, f"gru B={b}: wh no longer whole on chip")
         big_rows[b] = dict(us_a_step=us, launches_a_scan=n_launch, rows_a_launch=rows_a_launch, max_abs_err=err)
         print(f"gru B={b} T=64 H=512: {us:.3f} us a step, {n_launch} launch(es) a scan of {rows_a_launch} rows "
               f"each, one after another on the stream; max_abs_err fwd / masked rev {err:.3e} (atol 1e-4)",
@@ -1460,13 +1493,16 @@ def train_path(work: Path) -> dict:
         ops.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        pre = cli.main(["preprocess", "--corpus", str(corpus), "-dataset_path", ds, *common])
-        r1 = cli.main(["train1", "-dataset_path", ds, "-ckpt_dir", ck, "--iters-override", "4", *common])
+        idx = ["-index_path", str(work / "idx.json")]
+        pre = cli.main(["preprocess", "--corpus", str(corpus), "-dataset_path", ds, *idx, "--n-samples", "1000",
+                        *common])
+        arena = [*common, *idx, "--device-data"]  # the arena on the card (the loader: host_data_path)
+        r1 = cli.main(["train1", "-dataset_path", ds, "-ckpt_dir", ck, "--iters-override", "4", *arena])
         state1 = r1.pop("state")
-        r1b = cli.main(["train1", "-dataset_path", ds, "-ckpt_dir", ck, "--iters-override", "5", *common])
+        r1b = cli.main(["train1", "-dataset_path", ds, "-ckpt_dir", ck, "--iters-override", "5", *arena])
         r1b.pop("state")
         r2 = cli.main(["train2", "-dataset_path", ds, "-ckpt_dir", ck, "--iters-override", "1",
-                       "--targets", "V001", "V002", *common])
+                       "--targets", "V001", "V002", *arena])
         state2 = r2.pop("state")
         ex = cli.main(["export", "-dataset_path", ds, "-ckpt_dir", ck, "--out", str(work / "bundle"),
                        *common])
@@ -1525,6 +1561,187 @@ def train_path(work: Path) -> dict:
           flush=True)
     return dict(launches=launches, convert_launches=cv_launches, path=path, wall_s=wall, phases=phases,
                 setup_s=[r1["setup_s"], r2["setup_s"]], preprocess_s=pre["seconds"])
+
+
+def wide_h(dev) -> dict:
+    """Kernels 2 and 3 past the H whose columns of wh fit a block's shared
+    memory: kernel 2 in f32 at H = 2,048 and 4,096 and in bf16 at 2,304
+    (B=16, T=64, forward and reverse masked), kernel 3 at H = 2,048 (B=16,
+    T=32). Each keeps Hs < H rows on chip and reads the others each step
+    from a copy in global memory (kernel 2: packed per call; kernel 3: wh
+    itself); each call is one counted launch and holds against its plain
+    version (hold_path_calls' bars; kernel 3: dxw 1e-4 max abs, dwh and dbh
+    1e-4 rel-L2). Times (the unmasked scan) beside the plain version and the
+    bound, and the bytes a step reads from that copy: each batch group's
+    blocks read their share once per row block of a chunk."""
+    import torch
+
+    from zerospeech_tts_tpu_torch.ops import gru
+    from zerospeech_tts_tpu_torch.tools.workload import cuda_ms
+
+    def inputs(b, t, h, seed, dt):
+        g = torch.Generator().manual_seed(seed)
+        xw = torch.randn(b, t, 3 * h, generator=g).to(dev, dt)
+        wh = (torch.randn(h, 3 * h, generator=g) / math.sqrt(h)).to(dev, dt)
+        bh = (0.1 * torch.randn(3 * h, generator=g)).to(dev, dt)
+        return xw, wh, bh, torch.randint(1, t + 1, (b,), generator=g, dtype=torch.int32).to(dev)
+
+    rows = {}
+    b, t = 16, 64
+    for h, dt in ((2048, torch.float32), (4096, torch.float32), (2304, torch.bfloat16)):
+        name, counter = ("gru", "launches") if dt == torch.float32 else ("gru_bf16", "bf16_launches")
+        kc, n_k, nb, n_b, cb, smem, _, _, hs, pack = gru.scan_plan(dev, b, h, dt)
+        check(0 < hs < h and pack > 0, f"{name} H={h}: plan Hs {hs}, packed {pack}: not the wide mode")
+        xw, wh, bh, lens = inputs(b, t, h, h, dt)
+        for ln, rev in ((None, False), (lens, True)):
+            before = getattr(gru, counter)
+            gru.gru_scan(xw, wh, bh, ln, reverse=rev)
+            torch.cuda.synchronize()
+            check(getattr(gru, counter) == before + 1, f"{name} H={h}: not one launch a scan")
+        calls = {0: [[xw, wh, bh], {}, 1], 1: [[xw, wh, bh, lens], {"reverse": True}, 1]}
+        err = hold_path_calls(name, calls, f"{name} wide H={h}")
+        ms = cuda_ms(lambda: gru.gru_scan(xw, wh, bh), 5)
+        plain_ms = cuda_ms(lambda: gru.gru_scan_plain(xw, wh, bh), 1)
+        l2_step = pack * xw.element_size() * n_b * -(-nb // cb) * -(-cb // 8)
+        rows[f"{name} H={h}"] = dict(
+            B=b, T=t, Hs=hs, spread=dict(kc=kc, NK=n_k, nb=nb, NB=n_b, cb=cb, smem=smem), max_abs_err=err,
+            ms=ms, plain_ms=plain_ms, packed_bytes=pack * xw.element_size(), l2_bytes_a_step=l2_step,
+            **bound(*work(name, (xw, wh, bh), {}), peak=PEAKS.get(name, PEAK_F32_FLOPS)))
+        r = rows[f"{name} H={h}"]
+        print(f"{name} wide H={h} B={b} T={t}: Hs {hs} of {h} rows on chip ({n_k} x {n_b} blocks of {kc} "
+              f"columns), packed copy {r['packed_bytes'] / 1e6:.1f} MB, {l2_step / 1e6:.1f} MB read a step; "
+              f"max_abs_err {err:.3e}; kernel {ms:.3f} ms ({1e3 * ms / t:.2f} us a step)  plain {plain_ms:.3f} ms  "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+    h, t = 2048, 32
+    kc, nb, cb, n_k, n_b, smem, hs = gru.bwd_plan(dev, b, h)
+    check(0 < hs < h, f"gru_bwd H={h}: plan Hs {hs}: not the wide mode")
+    xw, wh, bh, _ = inputs(b, t, h, 7, torch.float32)
+    ys = gru.gru_scan(xw, wh, bh)
+    dys = torch.randn(b, t, h, generator=torch.Generator().manual_seed(8)).to(dev)
+    before = gru.bwd_launches
+    out_k = gru.gru_bwd(xw, wh, bh, ys, dys)
+    torch.cuda.synchronize()
+    check(gru.bwd_launches == before + 1, "gru_bwd wide: not one launch")
+    out_p = gru.gru_bwd_plain(xw, wh, bh, ys, dys)
+    err = (out_k[0] - out_p[0]).abs().max().item()
+    r_wh, r_bh = rel_l2(out_k[1], out_p[1]), rel_l2(out_k[2], out_p[2])
+    check(err <= 1e-4 and r_wh <= 1e-4 and r_bh <= 1e-4, f"gru_bwd wide H={h}: dxw {err}, dwh {r_wh}, dbh {r_bh}")
+    ms = cuda_ms(lambda: gru.gru_bwd(xw, wh, bh, ys, dys), 3)
+    plain_ms = cuda_ms(lambda: gru.gru_bwd_plain(xw, wh, bh, ys, dys), 1)
+    l2_step = n_b * -(-nb // cb) * -(-cb // 2) * (h - hs) * 3 * h * 4  # each chunk's row tiles re-read
+    rows[f"gru_bwd H={h}"] = dict(
+        B=b, T=t, Hs=hs, spread=dict(kc=kc, NK=n_k, nb=nb, NB=n_b, cb=cb, smem=smem), max_abs_err=err,
+        dwh_rel_l2=r_wh, dbh_rel_l2=r_bh, ms=ms, plain_ms=plain_ms, l2_bytes_a_step=l2_step,
+        **bound(*work("gru_bwd", (xw, wh, bh), {})))
+    r = rows[f"gru_bwd H={h}"]
+    print(f"gru_bwd wide H={h} B={b} T={t}: Hs {hs} of {h} rows on chip ({n_k} x {n_b} blocks of {kc} rows), "
+          f"{l2_step / 1e6:.1f} MB of wh read a step; dxw max_abs_err {err:.3e}, dwh rel-L2 {r_wh:.3e}, dbh "
+          f"{r_bh:.3e} (<= 1e-4); kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  bound {r['bound_ms']:.4f} ms "
+          f"({r['bound_by']})", flush=True)
+    return rows
+
+
+def same_corpus(a: Path, b: Path) -> dict:
+    """Check that corpus directory ``b`` (a merged sharded build) equals
+    ``a`` (a single-process build): index equal, arenas within 1e-6 (each
+    process runs kernel 1 on the same card), stats within 1e-10 (float64
+    sums reassociated), b's speaker map a's in sorted-name order."""
+    import numpy as np
+
+    from zerospeech_tts_tpu_torch.data.corpus import FEATS
+
+    sa = json.loads((a / "speakers.json").read_text())
+    check(json.loads((b / "speakers.json").read_text()) == {s: i for i, s in enumerate(sorted(sa))},
+          "merged speaker map is not the sorted one")
+    arena_err = stats_err = 0.0
+    for split in ("train", "test"):
+        check((a / split / "index.json").read_text() == (b / split / "index.json").read_text(),
+              f"merged {split} index differs")
+        for feat in FEATS:
+            arena_err = max(arena_err, float(np.abs(np.load(a / split / f"{feat}.npy")
+                                                    - np.load(b / split / f"{feat}.npy")).max()))
+    with np.load(a / "stats.npz") as za, np.load(b / "stats.npz") as zb:
+        check(sorted(za.files) == sorted(zb.files), "merged stats have other keys")
+        for k in za.files:
+            stats_err = max(stats_err, float(np.abs(za[k].astype(np.float64) - zb[k]).max()))
+    check(arena_err <= 1e-6 and stats_err <= 1e-10, f"merged corpus: arenas {arena_err}, stats {stats_err}")
+    return dict(arena_max_abs_diff=arena_err, stats_max_abs_diff=stats_err)
+
+
+def host_data_path(work: Path, device: str = "cuda", iters: int = 20) -> dict:
+    """The JAX package's default training input at flagship width on the
+    card: preprocess -index_path --workers 2, held against a single-process
+    build; train1 from the SegmentLoader (4 iterations a phase) with
+    --check-numerics --profile, whose trace must name kernels 2 and 3;
+    train2 (one GAN cycle) from the loader, its launches counted from just
+    before preprocess to just after train2 (the workers count their own
+    kernel-1 launches); then steps/s of train1 from the loader and from the
+    arena (--device-data) on the same ``iters``-iteration schedule."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from zerospeech_tts_tpu_torch import cli, ops
+    from zerospeech_tts_tpu_torch.config import DEFAULT_HPS_PATH, load_configs
+    from zerospeech_tts_tpu_torch.tools.workload import TARGETS, write_train_corpus
+
+    shutil.rmtree(work, ignore_errors=True)
+    corpus = write_train_corpus(work, seed=2)
+    hps, _ = load_configs(DEFAULT_HPS_PATH)
+    ds, idx, dev = str(work / "ds"), str(work / "idx.json"), ["--device", device]
+    train = ["-dataset_path", ds, "-index_path", idx, *dev]
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pre = cli.main(["preprocess", "--corpus", str(corpus), "-dataset_path", ds, "-index_path", idx,
+                    "--workers", "2", *dev])
+    r1 = cli.main(["train1", *train, "-ckpt_dir", str(work / "ck"), "--iters-override", "4",
+                   "--check-numerics", "--profile", str(work / "prof")])
+    r1.pop("state")
+    r2 = cli.main(["train2", *train, "-ckpt_dir", str(work / "ck"), "--iters-override", "1", "--targets", *TARGETS])
+    r2.pop("state")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    launches["frontend"] += pre["worker_launches"]["frontend"]
+    print(f"host data path wall {wall:.2f} s: preprocess --workers 2 {pre['seconds']:.2f} s "
+          f"({pre['counts']} utterances, {pre['index_entries']} index entries); launches {launches} "
+          f"(frontend: {pre['worker_launches']['frontend']} in the workers)", flush=True)
+    check(pre["worker_launches"]["frontend"] > 0, "kernel frontend was not launched in the shard workers")
+    for name in ("gru", "gru_bwd"):
+        check(launches[name] > 0, f"kernel {name} was not launched training from the SegmentLoader")
+    check(r1["step"] == 12 and r2["step"] == 12 + hps.n_critic + 1, f"loader training: steps {r1['step']}, "
+          f"{r2['step']}")
+    for k, v in {**r1["phases"], **r2["phases"]}.items():
+        check(all(np.isfinite(x) for x in v["last"].values()), f"loader {k}: non-finite losses {v['last']}")
+    trace = Path(r1["trace"])
+    text = trace.read_text()
+    named = {k: k in text for k in ("gru_scan_kernel", "gru_bwd_rec_kernel")}
+    print(f"  train1 --profile trace {trace.name}: {trace.stat().st_size / 1e6:.1f} MB, names {named}", flush=True)
+    check(all(named.values()), f"the profiler trace does not name kernels 2 and 3: {named}")
+
+    one = cli.main(["preprocess", "--corpus", str(corpus), "-dataset_path", str(work / "one"),
+                    "-index_path", str(work / "one.json"), *dev])
+    held = same_corpus(work / "one", Path(ds))
+    check((work / "one.json").read_text() == Path(idx).read_text(), "the merged corpus's segment index differs")
+    print(f"  --workers 2 against one process ({one['seconds']:.2f} s): arenas {held['arena_max_abs_diff']:.3e} "
+          f"(<= 1e-6), stats {held['stats_max_abs_diff']:.3e} (<= 1e-10), speaker map sorted, index equal",
+          flush=True)
+
+    rates = {}
+    for route, extra in (("loader", []), ("device_data", ["--device-data"])):
+        r = cli.main(["train1", *train, "-ckpt_dir", str(work / f"ck_{route}"), "--iters-override", str(iters),
+                      *extra])
+        rates[route] = {k: v["steps_per_s"] for k, v in r["phases"].items()}
+        rates[route]["setup_s"] = r["setup_s"]
+    print(f"  train1, {iters} iterations a phase, steps/s: " + "; ".join(
+        f"{k} loader {rates['loader'][k]:.3f} / device-data {rates['device_data'][k]:.3f}"
+        for k in ("pretrain_AE", "pretrain_C", "train")) + f"; set-up loader {rates['loader']['setup_s']:.2f} s / "
+        f"device-data {rates['device_data']['setup_s']:.2f} s", flush=True)
+    return dict(launches=launches, wall_s=wall, preprocess_workers_s=pre["seconds"], preprocess_one_s=one["seconds"],
+                held=held, trace_bytes=trace.stat().st_size, phases={**r1["phases"], **r2["phases"]},
+                steps_per_s=rates)
 
 
 def card_vs_cpu_steps() -> dict:

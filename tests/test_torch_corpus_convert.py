@@ -84,6 +84,7 @@ def work(tmp_path_factory, hps, params, stats):
     d["audio"] = dataclasses.asdict(AudioConfig(**ACFG))
     (root / "hps.json").write_text(json.dumps(d))
     out = cli.main(["preprocess", "--corpus", str(root / "corpus"), "-dataset_path", str(root / "ds"),
+                    "-index_path", str(root / "idx.json"), "--n-samples", "16",
                     "--hps", str(root / "hps.json"), "--device", "cpu"])
     assert out["counts"] == {"train": 1, "test": 3}
     speakers = {"S01": 0, "V001": 1, "V002": 2}

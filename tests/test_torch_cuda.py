@@ -176,32 +176,60 @@ def test_gru_bf16_kernel_matches_plain(cuda, b, t):
         print(f"B={b} T={t} reverse={reverse}: max |diff| {got[0]:.3e}, mean {got[1]:.3e}, control's {got[2]:.3e}")
 
 
+WIDE_H = [(2048, torch.float32), (4096, torch.float32), (2304, torch.bfloat16)]
+
+
 def test_gru_wide_h_raises_in_f32_and_states_bf16(cuda):
-    """H = 2,048: no spread of kernel 2 fits in f32 (a block's columns of wh
-    outgrow its shared memory), nor of kernel 3; the wrappers and the GRU
-    layer raise a ValueError that names H, with nothing launched. In bf16
-    the columns take half the bytes: the test states whether kernel 2 fits
-    there and, if it does, holds it against its plain version."""
+    """Wide H (the name is kept from when this test pinned the refusal of
+    such an H): kernel 2 in f32 at H = 2,048 and 4,096 and in bf16 at
+    2,304, B = 16, T = 64, forward and reverse masked, keeps only the first
+    Hs < H rows of a block's columns of wh in shared memory and reads the
+    rest from its packed copy; each run is one counted launch and holds
+    against gru_scan_plain at the existing bars (f32 1e-4; bf16 one ulp and
+    the control ratio). Kernel 3 at H = 2,048 (B = 16, T = 32) keeps Hs < H
+    rows on chip and holds against gru_bwd_plain (dxw 1e-4 max abs, dwh and
+    dbh 1e-4 rel-L2). The GRU layer at H = 2,048 runs on the card and
+    matches its own run on the CPU (1e-4). Shapes that fit keep Hs = H."""
     from zerospeech_tts_tpu_torch.models.layers import GRU
 
-    b, t, h = 2, 8, 2048
-    assert gru.scan_plan(cuda, b, h)[0] == 0 and gru.bwd_plan(cuda, b, h)[0] == 0
-    xw, wh, bh, _ = _gru_inputs_typed(b, t, h, 5, cuda, torch.float32)
-    launched, bwd = gru.launches, gru.bwd_launches
-    with pytest.raises(ValueError, match="H=2048"):
-        gru.gru_scan(xw, wh, bh)
-    with pytest.raises(ValueError, match="H=2048"):
-        gru.gru_bwd(xw, wh, bh, xw[..., :h].contiguous(), xw[..., :h].contiguous())
-    with torch.no_grad(), pytest.raises(ValueError, match="H=2048"):
-        GRU(64, h).to(cuda)(torch.zeros(b, t, 64, device=cuda))
-    assert (gru.launches, gru.bwd_launches) == (launched, bwd)
-    fits_bf16 = gru.scan_plan(cuda, b, h, torch.bfloat16)[0] > 0
-    print(f"H=2048 bf16: kernel 2 fits: {fits_bf16}; plan {gru.scan_plan(cuda, b, h, torch.bfloat16)}")
-    if fits_bf16:
-        xw16, wh16, bh16, _ = _gru_inputs_typed(b, t, h, 5, cuda, torch.bfloat16)
-        out = gru.gru_scan(xw16, wh16, bh16)
-        torch.cuda.synchronize()
-        _hold_bf16(out, xw16, wh16, bh16)
+    b, t = 16, 64
+    for h, dt in WIDE_H:
+        plan = gru.scan_plan(cuda, b, h, dt)
+        assert 0 < plan[8] < h and plan[9] > 0, plan
+        for reverse, masked in ((False, False), (True, True)):
+            xw, wh, bh, gen = _gru_inputs_typed(b, t, h, h + reverse, cuda, dt)
+            lens = torch.randint(1, t + 1, (b,), generator=gen, dtype=torch.int32).to(cuda) if masked else None
+            counter = "launches" if dt == torch.float32 else "bf16_launches"
+            before = getattr(gru, counter)
+            out = gru.gru_scan(xw, wh, bh, lens, reverse=reverse)
+            torch.cuda.synchronize()
+            assert getattr(gru, counter) == before + 1, (h, reverse)
+            if dt == torch.float32:
+                err = (out - gru.gru_scan_plain(xw, wh, bh, lens, reverse=reverse)).abs().max().item()
+                assert err <= 1e-4, (h, reverse, err)
+            else:
+                _hold_bf16(out, xw, wh, bh, lens, reverse)
+    h, t = 2048, 32
+    assert 0 < gru.bwd_plan(cuda, b, h)[6] < h, gru.bwd_plan(cuda, b, h)
+    xw, wh, bh = _gru_inputs(b, t, h, 3, cuda)
+    ys = gru.gru_scan(xw, wh, bh)
+    dys = torch.randn(b, t, h, generator=torch.Generator().manual_seed(1)).to(cuda)
+    before = gru.bwd_launches
+    dxw, dwh, dbh = gru.gru_bwd(xw, wh, bh, ys, dys)
+    torch.cuda.synchronize()
+    assert gru.bwd_launches == before + 1
+    rxw, rwh, rbh = gru.gru_bwd_plain(xw, wh, bh, ys, dys)
+    assert (dxw - rxw).abs().max().item() <= 1e-4
+    assert _rel(dwh, rwh) <= 1e-4 and _rel(dbh, rbh) <= 1e-4
+    layer = GRU(64, h)
+    with torch.no_grad():
+        layer.wh.copy_(torch.randn(h, 3 * h, generator=torch.Generator().manual_seed(2)) / math.sqrt(h))
+        x = torch.randn(2, 8, 64, generator=torch.Generator().manual_seed(3))
+        ref = layer(x)
+        got = layer.to(cuda)(x.to(cuda))
+    assert (got.cpu() - ref).abs().max().item() <= 1e-4
+    for bb in (1, 16, 32, 64):  # the paths' shapes keep their columns whole
+        assert gru.scan_plan(cuda, bb, 512)[8] == 512 and gru.bwd_plan(cuda, bb, 512)[6] == 512
 
 
 GL_CONFIGS = {**CONFIGS, **FFT_SIZES}
@@ -354,15 +382,9 @@ def test_wrappers_reject_bad_cuda_inputs(cuda):
     with pytest.raises(ValueError):  # the frontend's FFTs need one too
         odd = AudioConfig(n_fft=1000)
         frontend.fused_frontend(torch.rand(1, 30000, device=cuda), odd, 20)
-    with pytest.raises(ValueError):  # kernel 2: a block's columns of wh beyond its shared memory
-        h = 1600
-        gru.gru_scan(torch.rand(1, 2, 3 * h, device=cuda), torch.rand(h, 3 * h, device=cuda),
-                     torch.rand(3 * h, device=cuda))
-    with pytest.raises(ValueError):  # kernel 3: wh rows of a block beyond its shared memory
-        h = 1600
-        gru.gru_bwd(torch.rand(1, 1, 3 * h, device=cuda), torch.rand(h, 3 * h, device=cuda),
-                    torch.rand(3 * h, device=cuda), torch.rand(1, 1, h, device=cuda),
-                    torch.rand(1, 1, h, device=cuda))
+    with pytest.raises(ValueError):  # kernel 2: wh of the wrong shape
+        gru.gru_scan(torch.rand(1, 2, 12, device=cuda), torch.rand(4, 11, device=cuda),
+                     torch.rand(12, device=cuda))
     with pytest.raises(ValueError):  # ys of the wrong shape
         gru.gru_bwd(*(torch.rand(2, 3, 12, device=cuda), torch.rand(4, 12, device=cuda),
                       torch.rand(12, device=cuda), torch.rand(2, 3, 5, device=cuda),
@@ -370,3 +392,60 @@ def test_wrappers_reject_bad_cuda_inputs(cuda):
     with pytest.raises(ValueError):  # wrong dtype
         gru.gru_scan(torch.rand(2, 3, 12, device=cuda, dtype=torch.float64),
                      torch.rand(4, 12, device=cuda), torch.rand(12, device=cuda))
+
+
+def _tiny_training(root):
+    """A 6-speaker corpus (tools/workload.py) preprocessed on the card with
+    its segment index, and tiny-width hps beside it."""
+    import dataclasses
+    import json
+
+    from zerospeech_tts_tpu_torch import cli
+    from zerospeech_tts_tpu_torch.config import Hps
+    from zerospeech_tts_tpu_torch.tools.workload import write_train_corpus
+
+    hps = Hps().replace(batch_size=4, seg_len=64, emb_size=32, spk_emb_size=8, bank_size=4, bank_channels=8,
+                        conv_channels=16, n_critic=1, log_interval=1, save_interval=100)
+    d = dataclasses.asdict(hps)
+    d["audio"] = dataclasses.asdict(AudioConfig())
+    (root / "tiny.json").write_text(json.dumps(d))
+    common = ["--hps", str(root / "tiny.json"), "--device", "cuda"]
+    cli.main(["preprocess", "--corpus", str(write_train_corpus(root, n_utts=2)), "-dataset_path",
+              str(root / "ds"), "-index_path", str(root / "idx.json"), "--n-samples", "200", *common])
+    return hps, common
+
+
+def test_loader_batch_to_the_card_and_one_step(cuda, tmp_path):
+    """SegmentLoader batches copied to the card (pinned buffers,
+    non_blocking) equal the same loader's batches on the CPU, and a
+    pretrain_AE step from one runs kernels 2 and 3 to a finite loss."""
+    from zerospeech_tts_tpu_torch.data.loader import SegmentLoader
+    from zerospeech_tts_tpu_torch.train import Solver, init_state
+
+    hps, _ = _tiny_training(tmp_path)
+    kw = dict(seed=5, pairs=True, target_speakers=["V001"])
+    with SegmentLoader(tmp_path / "ds", tmp_path / "idx.json", hps, device=cuda, **kw) as on_card, \
+            SegmentLoader(tmp_path / "ds", tmp_path / "idx.json", hps, device="cpu", **kw) as on_cpu:
+        b_card, b_cpu = next(iter(on_card)), next(iter(on_cpu))
+        torch.cuda.synchronize()
+        for k, v in b_card.items():
+            assert v.is_cuda and torch.equal(v.cpu(), b_cpu[k]), k
+        state = init_state(hps, device=cuda)
+        before = (gru.launches, gru.bwd_launches)
+        m = Solver(hps, check_numerics=True).train(state, iter(on_card), "pretrain_AE", 1)
+        torch.cuda.synchronize()
+    assert gru.launches > before[0] and gru.bwd_launches > before[1]
+    assert math.isfinite(float(m["loss_rec"])) and "loss_pair" in m
+
+
+def test_profile_trace_names_kernels_2_and_3(cuda, tmp_path):
+    """train1 --profile on the card: the Chrome trace holds device events
+    of kernel 2 (gru_scan_kernel) and kernel 3 (gru_bwd_rec_kernel)."""
+    from zerospeech_tts_tpu_torch import cli
+
+    _, common = _tiny_training(tmp_path)
+    out = cli.main(["train1", "-dataset_path", str(tmp_path / "ds"), "-index_path", str(tmp_path / "idx.json"),
+                    "-ckpt_dir", str(tmp_path / "ck"), "--iters-override", "1", "--profile",
+                    str(tmp_path / "prof"), "--check-numerics", *common])
+    text = out["trace"].read_text()
+    assert "gru_scan_kernel" in text and "gru_bwd_rec_kernel" in text

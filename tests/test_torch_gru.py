@@ -68,3 +68,33 @@ def test_gru_plain_masked_reverse_is_padding_invariant():
         alone = gru.gru_scan_plain(xw[b : b + 1, :n], wh, bh, reverse=True)
         torch.testing.assert_close(out[b : b + 1, :n], alone, atol=1e-6, rtol=0)
         assert not out[b, n:].any()
+
+
+def test_gru_layer_at_wide_h_matches_jax():
+    """The GRU layer at H = 2,048 (B = 2, T = 8) on the CPU, forward and
+    reversed, against JAX's layer with the same parameters (its lax.scan
+    route) at 1e-5. On the card such an H runs kernel 2's wide mode
+    (tests/test_torch_cuda.py)."""
+    import jax
+
+    from zerospeech_tts_tpu.models.layers import GRU as JaxGRU
+    from zerospeech_tts_tpu_torch.models.layers import GRU
+
+    b, t, i, h = 2, 8, 64, 2048
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((b, t, i)).astype(np.float32)
+    wi = (rng.standard_normal((i, 3 * h)) / np.sqrt(i)).astype(np.float32)
+    bi = (0.1 * rng.standard_normal(3 * h)).astype(np.float32)
+    wh = (rng.standard_normal((h, 3 * h)) / np.sqrt(h)).astype(np.float32)
+    bh = (0.1 * rng.standard_normal(3 * h)).astype(np.float32)
+    params = {"params": {"wi": {"kernel": wi, "bias": bi}, "wh": wh, "bh": bh}}
+    for reverse in (False, True):
+        ref = JaxGRU(hidden=h, reverse=reverse).apply(jax.tree.map(jnp.asarray, params), jnp.asarray(x))
+        layer = GRU(i, h, reverse=reverse)
+        with torch.no_grad():
+            layer.wi.weight.copy_(torch.from_numpy(wi.T))
+            layer.wi.bias.copy_(torch.from_numpy(bi))
+            layer.wh.copy_(torch.from_numpy(wh))
+            layer.bh.copy_(torch.from_numpy(bh))
+            out = layer(torch.from_numpy(x))
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL, rtol=0)

@@ -100,8 +100,10 @@ def mel_run(tmp_path_factory):
                 save_wav(root / "corpus" / split / f"{spk}_{i:04d}.wav", y, 16000)
     ds, ck, hp = str(root / "ds"), str(root / "ck"), str(root / "hps.json")
     c = ["--hps", hp, "--device", "cpu"]
-    cli.main(["preprocess", "--corpus", str(root / "corpus"), "-dataset_path", ds, *c])
-    r1 = cli.main(["train1", "-dataset_path", ds, "-ckpt_dir", ck, "--iters-override", "1", "--feat", "mel", *c])
+    idx = ["-index_path", str(root / "idx.json")]
+    cli.main(["preprocess", "--corpus", str(root / "corpus"), "-dataset_path", ds, *idx, "--n-samples", "64", *c])
+    r1 = cli.main(["train1", "-dataset_path", ds, *idx, "--device-data", "-ckpt_dir", ck, "--iters-override", "1",
+                   "--feat", "mel", *c])
     ex = cli.main(["export", "-dataset_path", ds, "-ckpt_dir", ck, "--out", str(root / "bundle"),
                    "--feat", "mel", *c])
     cv = cli.main(["convert", "-dataset_path", ds, "-ckpt_dir", ck, "-result_dir", str(root / "out"),

@@ -199,15 +199,18 @@ def test_cli_training_pipeline_cpu(tmp_path):
     (tmp_path / "tiny.json").write_text(json.dumps(cfg))
     ds, ck = str(tmp_path / "ds"), str(tmp_path / "ck")
     common = ["--hps", str(tmp_path / "tiny.json"), "--device", "cpu"]
-    pre = cli.main(["preprocess", "--corpus", str(tmp_path / "corpus"), "-dataset_path", ds, *common])
-    assert pre["counts"] == {"train": 8, "test": 1}
-    r1 = cli.main(["train1", "-dataset_path", ds, "-ckpt_dir", ck, "--iters-override", "2", *common])
+    idx = ["-index_path", str(tmp_path / "idx.json")]
+    pre = cli.main(["preprocess", "--corpus", str(tmp_path / "corpus"), "-dataset_path", ds, *idx,
+                    "--n-samples", "64", *common])
+    assert pre["counts"] == {"train": 8, "test": 1} and pre["index_entries"] == 64
+    train = [*common, *idx, "--device-data"]  # the arena on the device (the loader: test_torch_loader.py)
+    r1 = cli.main(["train1", "-dataset_path", ds, "-ckpt_dir", ck, "--iters-override", "2", *train])
     assert r1["step"] == 6 and set(r1["phases"]) == {"pretrain_AE", "pretrain_C", "train"}
     assert r1["resumed_from"] is None
-    r1b = cli.main(["train1", "-dataset_path", ds, "-ckpt_dir", ck, "--iters-override", "3", *common])
+    r1b = cli.main(["train1", "-dataset_path", ds, "-ckpt_dir", ck, "--iters-override", "3", *train])
     assert r1b["resumed_from"] == 6 and r1b["step"] == 9 and set(r1b["phases"]) == {"train"}
     r2 = cli.main(["train2", "-dataset_path", ds, "-ckpt_dir", ck, "--iters-override", "1",
-                   "--targets", "V001", "V002", *common])
+                   "--targets", "V001", "V002", *train])
     assert r2["step"] == 9 + hps.n_critic + 1
     for p in r2["state"].enc.parameters():
         assert torch.isfinite(p).all()
@@ -223,4 +226,4 @@ def test_cli_training_pipeline_cpu(tmp_path):
     sr, pcm = scipy.io.wavfile.read(tmp_path / "out" / "V002" / "S09_0.wav")
     assert sr == 16000 and pcm.dtype == np.int16 and len(pcm) > 0
     with pytest.raises(SystemExit):  # stage 2 needs a stage-1 checkpoint
-        cli.main(["train2", "-dataset_path", ds, "-ckpt_dir", str(tmp_path / "empty"), *common])
+        cli.main(["train2", "-dataset_path", ds, "-ckpt_dir", str(tmp_path / "empty"), *train])

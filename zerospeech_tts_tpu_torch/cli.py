@@ -1,11 +1,13 @@
 """CLI of the PyTorch port: the ``zstts`` verbs from corpus to conversion.
 
-    python -m zerospeech_tts_tpu_torch preprocess --corpus DIR -dataset_path DS
-    python -m zerospeech_tts_tpu_torch train1 -dataset_path DS -ckpt_dir CK \
-        [--feat lin|mel] [--data-bf16] [--iters-override N] [--train-batch-size B] \
-        [--no-pairs] [--fresh] [--load_model STEP|DIR] [--log_dir L]
-    python -m zerospeech_tts_tpu_torch train2 -dataset_path DS -ckpt_dir CK \
-        [--feat lin|mel] [--data-bf16] [--targets V001 V002] [--iters-override N]
+    python -m zerospeech_tts_tpu_torch preprocess --corpus DIR -dataset_path DS \
+        -index_path IDX [--n-samples N] [--no-trim] [--workers N | --shard I/N | \
+        --merge-shards SHARD_DIR ...]
+    python -m zerospeech_tts_tpu_torch train1 -dataset_path DS -index_path IDX -ckpt_dir CK \
+        [--device-data [--data-bf16]] [--feat lin|mel] [--iters-override N] \
+        [--train-batch-size B] [--no-pairs] [--fresh] [--load_model STEP|DIR] [--log_dir L]
+    python -m zerospeech_tts_tpu_torch train2 -dataset_path DS -index_path IDX -ckpt_dir CK \
+        [--device-data [--data-bf16]] [--feat lin|mel] [--targets V001 V002] [--iters-override N]
     python -m zerospeech_tts_tpu_torch export -dataset_path DS -ckpt_dir CK --out B \
         [--feat lin|mel]
     python -m zerospeech_tts_tpu_torch convert (--from-export B | -dataset_path DS \
@@ -29,11 +31,15 @@
 Same flags and output layouts as the ``zstts`` verbs, with the port's own
 files: the corpus is a numpy directory (data/corpus.py), checkpoints are
 ``torch.save`` files (train/checkpoint.py), the bundle holds ``model.npz``
-(export.py). Training always samples its batches from the corpus arena on
-the device, so ``-index_path`` and ``--device-data`` have no counterpart.
+(export.py). ``preprocess`` also writes the segment index (-index_path,
+data/segments.py); training reads its batches through the host
+``SegmentLoader`` over that index (data/loader.py), or with
+``--device-data`` samples them from the corpus arena on the device.
 Every verb that runs a model takes ``--device``: ``cuda`` (the default)
 runs the hand-written kernels and exits with an error when no CUDA device
-is visible; ``cpu`` runs their plain versions. ``submission`` and ``eval
+is visible; ``cpu`` runs their plain versions. Every verb but
+``submission`` takes ``--profile DIR``, ``--check-numerics`` and
+``--matmul-precision`` (see their help). ``submission`` and ``eval
 --units/--abx`` read files only. ``--wire-uint8`` and ``--wire-mulaw`` are
 refused: they are on ROADMAP.md's "do not port" list.
 """
@@ -42,8 +48,10 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 import torch
@@ -52,6 +60,57 @@ from zerospeech_tts_tpu_torch.config import DEFAULT_HPS_PATH, load_configs
 
 
 FEATS = ("lin", "mel")
+MATMUL_PRECISIONS = ("bfloat16", "tensorfloat32", "float32", "highest")
+
+
+def global_flags(p) -> None:
+    """--profile, --check-numerics and --matmul-precision (the flags JAX's
+    ``_common`` gives every verb but submission)."""
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="write a torch.profiler trace (CPU and CUDA activities, Chrome trace "
+                        "format: DIR/<verb>.pt.trace.json) of training or conversion")
+    p.add_argument("--check-numerics", action="store_true",
+                   help="raise FloatingPointError at the first non-finite loss or module gradient "
+                        "norm of a training step, or encoder logit of a conversion (waits for the "
+                        "device once a step)")
+    p.add_argument("--matmul-precision", default=None, choices=MATMUL_PRECISIONS,
+                   help="PyTorch's float32 matmul and convolution precision: float32 and highest "
+                        "keep the package's pin (TF32 off for matmuls and cuDNN); tensorfloat32 sets "
+                        "torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32; "
+                        "bfloat16 sets torch.set_float32_matmul_precision('medium'). The "
+                        "hand-written kernels compute as they always do, whatever this flag")
+
+
+def apply_matmul_precision(choice: str | None) -> None:
+    """Set PyTorch's float32 matmul/convolution flags for --matmul-precision
+    (None leaves them as the package pinned them at import)."""
+    if choice is None:
+        return
+    tf32 = choice == "tensorfloat32"
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cudnn.allow_tf32 = tf32
+    if choice == "bfloat16":
+        torch.set_float32_matmul_precision("medium")
+    elif not tf32:
+        torch.set_float32_matmul_precision("highest")
+
+
+@contextmanager
+def maybe_profile(args, what: str):
+    """A torch.profiler trace of the body into --profile DIR (as JAX's
+    ``_MaybeProfile``); yields the trace's path, or None without the flag."""
+    if not getattr(args, "profile", None):
+        yield None
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
+    path = Path(args.profile) / f"{what}.pt.trace.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield path
+    prof.export_chrome_trace(str(path))
+    print(f"profiler trace -> {path}", flush=True)
 
 
 def model_source(p) -> None:
@@ -91,15 +150,32 @@ def build_parser() -> argparse.ArgumentParser:
         p.add_argument("-dataset_path", "--dataset_path", required=dataset_required,
                        help="corpus directory written by preprocess")
         p.add_argument("--device", default="cuda", help="cuda (kernels) or cpu (plain PyTorch)")
+        global_flags(p)
 
-    p = sub.add_parser("preprocess", help="build the corpus directory (ref --preprocess)")
+    p = sub.add_parser("preprocess", help="build the corpus directory and the segment index "
+                                          "(ref --preprocess)")
     common(p)
     p.add_argument("--corpus", required=True, help="ZeroSpeech-layout corpus dir (train/, test/)")
+    p.add_argument("-index_path", "--index_path", required=True, help="segment index JSON to write")
+    p.add_argument("--n-samples", type=int, default=500_000, help="segment index size")
     p.add_argument("--no-trim", action="store_true")
+    p.add_argument("--shard", default=None, metavar="I/N",
+                   help="build only utterance slice I of N into -dataset_path, with raw "
+                        "per-speaker stat partials and no segment index; combine the shards "
+                        "with --merge-shards")
+    p.add_argument("--merge-shards", nargs="+", default=None, metavar="SHARD_DIR",
+                   help="merge shard directories (from --shard runs) into -dataset_path, "
+                        "finalise the per-speaker stats exactly and write the segment index; "
+                        "--corpus is ignored")
+    p.add_argument("--workers", type=_positive_int, default=1, metavar="N",
+                   help="build with N shard subprocesses (each running the frontend on "
+                        "--device), then merge them and remove the shard directories")
 
     for stage in ("train1", "train2"):
         p = sub.add_parser(stage, help="stage-1 phases" if stage == "train1" else "stage-2 patch-GAN")
         common(p)
+        p.add_argument("-index_path", "--index_path", required=True,
+                       help="segment index written by preprocess (the SegmentLoader's draws)")
         p.add_argument("-ckpt_dir", "--ckpt_dir", required=True)
         p.add_argument("--log_dir", default=None)
         p.add_argument("--load_model", nargs="?", const="latest", default=None, metavar="STEP|DIR",
@@ -114,9 +190,12 @@ def build_parser() -> argparse.ArgumentParser:
                             "(disables the hps.lambda_pair objective)")
         p.add_argument("--train-batch-size", type=int, default=None, help="override hps.batch_size")
         p.add_argument("--feat", default="lin", choices=FEATS, help="features to train on")
+        p.add_argument("--device-data", action="store_true",
+                       help="sample batches from the corpus arena held on the device, in place "
+                            "of the host SegmentLoader over -index_path")
         p.add_argument("--data-bf16", action="store_true",
-                       help="hold the training arena on the device in bfloat16 (halves its "
-                            "bytes; batches are f32)")
+                       help="with --device-data: hold the arena in bfloat16 (halves its bytes; "
+                            "batches are f32)")
 
     p = sub.add_parser("export", help="inference bundle (enc + dec, speakers, stats, hps)")
     common(p)
@@ -166,6 +245,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "or the rows*frames the dispatches execute (tail rounding, "
                         "--frame-budget caps)")
     p.add_argument("--device", default="cuda", help="cuda (kernels) or cpu (plain PyTorch)")
+    global_flags(p)
 
     p = sub.add_parser("convert-single", help="single-utterance VC (ref --test_single)")
     model_source(p)
@@ -177,6 +257,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="features the model was trained on (default: the bundle's, else lin)")
     dtype_flags(p)
     p.add_argument("--device", default="cuda", help="cuda (kernels) or cpu (plain PyTorch)")
+    global_flags(p)
 
     p = sub.add_parser("serve", help="HTTP conversion service: a warm model and request "
                                      "micro-batching (no reference counterpart)")
@@ -203,6 +284,7 @@ def build_parser() -> argparse.ArgumentParser:
     dtype_flags(p)
     wire_flags(p)
     p.add_argument("--device", default="cuda", help="cuda (kernels) or cpu (plain PyTorch)")
+    global_flags(p)
 
     p = sub.add_parser("eval", help="challenge metrics: unit bitrate, ABX, recon L1, stability")
     common(p, dataset_required=False)
@@ -264,17 +346,90 @@ def _sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
-def cmd_preprocess(args):
-    from zerospeech_tts_tpu_torch.data.corpus import build_corpus
+def _parse_shard(spec: str) -> tuple[int, int]:
+    try:
+        i, n = (int(x) for x in spec.split("/"))
+    except ValueError:
+        sys.exit(f"--shard wants I/N (e.g. 0/4), got {spec!r}")
+    if not 0 <= i < n:
+        sys.exit(f"--shard index {i} not in [0, {n})")
+    return i, n
 
-    dev = _device(args)
-    _, acfg = load_configs(args.hps)
+
+def _build_in_workers(args) -> dict:
+    """--workers N: N subprocesses of ``preprocess --shard i/N`` (each runs
+    the frontend on --device), then the merge; the shard directories are
+    removed. Adds the workers' summed kernel launches ("worker_launches")."""
+    import shutil
+    import subprocess
+
+    from zerospeech_tts_tpu_torch.data.corpus import merge_corpus_shards
+
+    n = args.workers
+    shard_dirs = [f"{args.dataset_path}.shard{i}of{n}" for i in range(n)]
+    pkg_root = str(Path(__file__).resolve().parents[1])
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in (pkg_root, os.environ.get("PYTHONPATH")) if p))
+    procs = []
+    for i, sd in enumerate(shard_dirs):
+        cmd = [sys.executable, "-m", "zerospeech_tts_tpu_torch", "preprocess", "--corpus", args.corpus,
+               "-dataset_path", sd, "-index_path", args.index_path,  # unused by a shard run
+               "--hps", args.hps, "--shard", f"{i}/{n}", "--device", args.device]
+        if args.no_trim:
+            cmd.append("--no-trim")
+        procs.append(subprocess.Popen(cmd, env=env))
+    rcs = [p.wait() for p in procs]
+    if any(rcs):
+        sys.exit(f"shard worker(s) failed: rcs={rcs}")
+    launches: dict[str, int] = {}
+    for sd in shard_dirs:
+        for k, v in json.loads((Path(sd) / "launches.json").read_text()).items():
+            launches[k] = launches.get(k, 0) + v
+    out = merge_corpus_shards(shard_dirs, args.dataset_path)
+    for sd in shard_dirs:
+        shutil.rmtree(sd)
+    out["worker_launches"] = launches
+    return out
+
+
+def cmd_preprocess(args):
+    from zerospeech_tts_tpu_torch import ops
+    from zerospeech_tts_tpu_torch.data.corpus import build_corpus, merge_corpus_shards
+    from zerospeech_tts_tpu_torch.data.segments import make_segment_index
+
+    hps, acfg = load_configs(args.hps)
     t0 = time.time()
-    out = build_corpus(args.corpus, args.dataset_path, acfg, trim=not args.no_trim, device=dev)
-    _sync(dev)
+    if args.merge_shards:
+        out = merge_corpus_shards(args.merge_shards, args.dataset_path)
+        how = f"merged {len(args.merge_shards)} shards"
+    elif args.shard is not None:
+        i, n = _parse_shard(args.shard)
+        dev = _device(args)
+        out = build_corpus(args.corpus, args.dataset_path, acfg, trim=not args.no_trim, device=dev,
+                           n_shards=n, shard_index=i)
+        _sync(dev)
+        (Path(args.dataset_path) / "launches.json").write_text(json.dumps(ops.launch_counts()) + "\n")
+        out["seconds"] = time.time() - t0
+        print(f"shard {i}/{n}: {out['counts']} utterances in {out['seconds']:.1f}s -> {out['path']} "
+              "(raw stat partials; run --merge-shards when all shards exist)", flush=True)
+        return out
+    elif args.workers > 1:
+        out = _build_in_workers(args)
+        how = f"{args.workers}-worker build"
+    else:
+        dev = _device(args)
+        out = build_corpus(args.corpus, args.dataset_path, acfg, trim=not args.no_trim, device=dev)
+        _sync(dev)
+        how = "corpus"
+    if "train" in out["counts"]:
+        entries = make_segment_index(args.dataset_path, args.index_path, hps.seg_len, args.n_samples,
+                                     seed=hps.seed, pair_grid=hps.downsample)  # latent-aligned pair offsets
+        index = f"index: {len(entries)} segments -> {args.index_path}"
+    else:  # a conversion-only corpus (test split alone): nothing to train from
+        entries, index = [], "no train split: no segment index written"
+    out["index_entries"] = len(entries)
     out["seconds"] = time.time() - t0
-    print(f"corpus: {out['counts']} utterances, {out['frames']} frames, "
-          f"{len(out['speakers'])} speakers in {out['seconds']:.1f}s -> {out['path']}")
+    print(f"{how}: {out['counts']} utterances, {out['frames']} frames, {len(out['speakers'])} speakers; "
+          f"{index}; {out['seconds']:.1f}s -> {out['path']}", flush=True)
     return out
 
 
@@ -292,7 +447,11 @@ def _restore_source(args, hps, ckpt):
 
 
 def _make_training(args):
+    """(hps, solver, data, state, ckpt, logger, set-up seconds): data is
+    the host SegmentLoader over -index_path, or with --device-data the
+    arena on the device."""
     from zerospeech_tts_tpu_torch.data.device_dataset import DeviceDataset
+    from zerospeech_tts_tpu_torch.data.loader import SegmentLoader
     from zerospeech_tts_tpu_torch.train import CheckpointManager, Logger, Solver, init_state
 
     dev = _device(args)
@@ -300,17 +459,34 @@ def _make_training(args):
     hps, _ = load_configs(args.hps)
     if args.train_batch_size:
         hps = hps.replace(batch_size=args.train_batch_size)
-    dataset = DeviceDataset.from_corpus(args.dataset_path, hps, target_speakers=args.targets,
-                                        device=dev, feat=args.feat,
-                                        dtype=torch.bfloat16 if args.data_bf16 else torch.float32)
+    if args.device_data:
+        data = DeviceDataset.from_corpus(args.dataset_path, hps, target_speakers=args.targets,
+                                         device=dev, feat=args.feat,
+                                         dtype=torch.bfloat16 if args.data_bf16 else torch.float32)
+    else:  # stage 1 takes the same-utterance pair; stage 2 does not need it
+        data = SegmentLoader(args.dataset_path, args.index_path, hps, feat=args.feat,
+                             target_speakers=args.targets, device=dev, seed=hps.seed,
+                             pairs=args.cmd == "train1" and not args.no_pairs)
     state = init_state(hps, device=dev)
     ckpt = CheckpointManager(args.ckpt_dir, hps=hps)
     logger = Logger(args.log_dir or Path(args.ckpt_dir) / "logs")
     _sync(dev)
-    return hps, Solver(hps), dataset, state, ckpt, logger, time.time() - t0
+    solver = Solver(hps, check_numerics=args.check_numerics)
+    return hps, solver, data, state, ckpt, logger, time.time() - t0
 
 
-def _run_phases(solver, state, dataset, phases, logger, ckpt, pairs=True) -> dict:
+@contextmanager
+def _batches(data):
+    """What Solver.train draws from: the DeviceDataset itself, or an
+    iterator over the SegmentLoader (closed on exit)."""
+    if hasattr(data, "sample_batch"):
+        yield data
+        return
+    with data:
+        yield iter(data)
+
+
+def _run_phases(solver, state, data, phases, logger, ckpt, pairs=True) -> dict:
     """Run (mode, iters) phases; returns per phase its steps, seconds and
     last metrics."""
     dev, out = state.device, {}
@@ -321,7 +497,7 @@ def _run_phases(solver, state, dataset, phases, logger, ckpt, pairs=True) -> dic
         step0 = state.step
         _sync(dev)
         t0 = time.time()
-        last = solver.train(state, dataset, mode, iters, logger=logger, ckpt=ckpt, pairs=pairs)
+        last = solver.train(state, data, mode, iters, logger=logger, ckpt=ckpt, pairs=pairs)
         _sync(dev)
         dt = time.time() - t0
         out[mode] = {"steps": state.step - step0, "seconds": dt, "steps_per_s": (state.step - step0) / dt,
@@ -332,7 +508,7 @@ def _run_phases(solver, state, dataset, phases, logger, ckpt, pairs=True) -> dic
 
 
 def cmd_train1(args):
-    hps, solver, dataset, state, ckpt, logger, setup_s = _make_training(args)
+    hps, solver, data, state, ckpt, logger, setup_s = _make_training(args)
     ov = args.iters_override
     phases = [("pretrain_AE", ov or hps.enc_pretrain_iters),
               ("pretrain_C", ov or hps.dis_pretrain_iters),
@@ -346,6 +522,8 @@ def cmd_train1(args):
         src.restore(state, src_step)
         resumed = state.step
         print(f"resumed from step {state.step}")
+        if hasattr(data, "reseed"):  # fresh batches, not a replay of the consumed ones
+            data.reseed(state.step)
         done, trimmed = state.step, []  # skip the completed part of the schedule
         for mode, iters in phases:
             trimmed.append((mode, max(0, min(iters, iters - done))))
@@ -353,28 +531,32 @@ def cmd_train1(args):
         phases = trimmed
         if all(n == 0 for _, n in phases):
             print("stage-1 schedule already complete; nothing to do")
-    print(f"set-up {setup_s:.2f}s (corpus to device, model init)")
-    out = _run_phases(solver, state, dataset, phases, logger, ckpt, pairs=not args.no_pairs)
+    print(f"set-up {setup_s:.2f}s (data, model init)")
+    with _batches(data) as batches, maybe_profile(args, "train1") as trace:
+        out = _run_phases(solver, state, batches, phases, logger, ckpt, pairs=not args.no_pairs)
     ckpt.save(state)
     logger.close()
     print(f"stage-1 done at step {state.step}; ckpt -> {args.ckpt_dir}")
     return {"phases": out, "setup_s": setup_s, "resumed_from": resumed, "step": state.step,
-            "state": state}
+            "state": state, "trace": trace}
 
 
 def cmd_train2(args):
-    hps, solver, dataset, state, ckpt, logger, setup_s = _make_training(args)
+    hps, solver, data, state, ckpt, logger, setup_s = _make_training(args)
     src, src_step = _restore_source(args, hps, ckpt)
     if src.latest_step() is None:
         sys.exit("train2 requires a stage-1 checkpoint (stage 2 starts from stage-1 weights)")
     src.restore(state, src_step)
-    print(f"stage-2 from step {state.step}; set-up {setup_s:.2f}s (corpus to device, model init)")
-    out = _run_phases(solver, state, dataset, [("patchGAN", args.iters_override or hps.patch_iters)],
-                      logger, ckpt)
+    if hasattr(data, "reseed"):
+        data.reseed(state.step)
+    print(f"stage-2 from step {state.step}; set-up {setup_s:.2f}s (data, model init)")
+    with _batches(data) as batches, maybe_profile(args, "train2") as trace:
+        out = _run_phases(solver, state, batches, [("patchGAN", args.iters_override or hps.patch_iters)],
+                          logger, ckpt)
     ckpt.save(state)
     logger.close()
     print(f"stage-2 done at step {state.step}")
-    return {"phases": out, "setup_s": setup_s, "step": state.step, "state": state}
+    return {"phases": out, "setup_s": setup_s, "step": state.step, "state": state, "trace": trace}
 
 
 def cmd_export(args):
@@ -463,6 +645,7 @@ def _load_converter(args):
         feat=feat,
         compute_dtype=torch.bfloat16 if args.bf16 else torch.float32,
         encoder_dtype=torch.float32 if args.enc_f32 else None,
+        check_numerics=getattr(args, "check_numerics", False),
     )
     return conv, speakers
 
@@ -489,14 +672,16 @@ def cmd_convert(args):
                 bucket_cost_model=args.bucket_cost_model)
     tgts = {t: speakers[t] for t in targets}
     t0 = time.time()
-    if args.from_wavs:
-        out = convert_wav_dir(conv, args.from_wavs, args.result_dir, tgts, **opts)
-    else:
-        out = convert_corpus(conv, args.dataset_path, args.result_dir, tgts, split=args.split,
-                             **opts)
-    _sync(conv.device)
-    dt = time.time() - t0
+    with maybe_profile(args, "convert") as trace:
+        if args.from_wavs:
+            out = convert_wav_dir(conv, args.from_wavs, args.result_dir, tgts, **opts)
+        else:
+            out = convert_corpus(conv, args.dataset_path, args.result_dir, tgts, split=args.split,
+                                 **opts)
+        _sync(conv.device)
+        dt = time.time() - t0
     out["seconds"] = dt
+    out["trace"] = trace
     print(
         f"converted {out['n_utterances']} utterances x {0 if args.units_only else len(targets)} "
         f"targets in {dt:.1f}s ({out['n_utterances'] / dt:.2f} utt/s, "
@@ -637,6 +822,7 @@ def cmd_submission(args):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    apply_matmul_precision(getattr(args, "matmul_precision", None))
     return {"preprocess": cmd_preprocess, "train1": cmd_train1, "train2": cmd_train2,
             "export": cmd_export, "convert": cmd_convert,
             "convert-single": cmd_convert_single, "serve": cmd_serve, "eval": cmd_eval,

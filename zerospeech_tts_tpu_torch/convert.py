@@ -219,7 +219,10 @@ class Converter:
     ``frame_budget`` (rows*frames a dispatch): short buckets take more
     utterances a dispatch (_bucket_cap: the largest allowed row count
     within the budget, never below batch_size, at most 128 rows). None
-    keeps the flat batch_size cap."""
+    keeps the flat batch_size cap.
+
+    ``check_numerics``: raise FloatingPointError at the first non-finite
+    encoder logit of a true frame (one wait for the device a dispatch)."""
 
     def __init__(
         self,
@@ -236,6 +239,7 @@ class Converter:
         feat: str = "lin",  # which features the model was trained on (lin|mel)
         compute_dtype="float32",  # the decoder's dtype: float32 | bfloat16
         encoder_dtype=None,  # the encoder's: None -> compute_dtype
+        check_numerics: bool = False,
     ):
         assert bucket_frames % hps.downsample == 0
         if feat not in ("lin", "mel"):
@@ -247,6 +251,7 @@ class Converter:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {self.device}: no CUDA device is visible")
         self.hps, self.acfg, self.stats = hps, acfg, stats
+        self.check_numerics = check_numerics
         self.gl_iters = gl_iters if gl_iters is not None else acfg.gl_iters
         self.batch_size = batch_size
         self.bucket_frames = bucket_frames
@@ -353,6 +358,7 @@ class Converter:
         hps, acfg = self.hps, self.acfg
         zlens = (tlens + hps.downsample - 1) // hps.downsample
         logits = self.conv_encoder(x, lengths=tlens).float()
+        self._check_logits(logits, tlens)
         units = unit_bits(logits, hps.enc_mode)
         z = (
             discretize(logits, hps.enc_mode, hps.gumbel_temp, None)
@@ -378,7 +384,23 @@ class Converter:
         """Normalised features [B, T, F] -> units [B, T/ds, emb] int32, from
         the f32 encoder in every configuration (the JAX package's units-only
         programs run the uncast parameters)."""
-        return unit_bits(self.encoder(x, lengths=tlens), self.hps.enc_mode)
+        logits = self.encoder(x, lengths=tlens)
+        self._check_logits(logits, tlens)
+        return unit_bits(logits, self.hps.enc_mode)
+
+    def _check_logits(self, logits, tlens) -> None:
+        """With check_numerics: raise at a non-finite logit of a true
+        latent frame (frames past ceil(tlens / downsample) are bucket
+        padding)."""
+        if not self.check_numerics:
+            return
+        zlens = (tlens.to(logits.device) + self.hps.downsample - 1) // self.hps.downsample
+        true = torch.arange(logits.shape[1], device=logits.device)[None, :] < zlens[:, None]
+        bad = ~torch.isfinite(logits).reshape(*logits.shape[:2], -1).all(dim=-1) & true
+        if bool(bad.any()):
+            rows = sorted({int(r) for r in bad.nonzero()[:, 0].tolist()})
+            raise FloatingPointError(f"--check-numerics: conversion: non-finite encoder logits in batch "
+                                     f"rows {rows} of a [{logits.shape[0]}, {logits.shape[1]}] dispatch")
 
     def _wav_features(self, pcm, src_mean, src_std, slens):
         """int16 PCM [B, n_samp] -> frontend -> source z-norm: (features

@@ -53,11 +53,21 @@
 //      acquire spin).
 // A step's chain is thus one barrier and one L2 round trip for h, not a
 // launch. Any B runs: rows a group holds are staged in chunks, and a batch
-// too large for the shared memory runs as slices, a launch each. Only H is
-// bounded: a block's columns of wh (ceil(H / SMs) x 3H values) must fit in
-// its shared memory with room for one staged row, up to H of about 1,500
-// in f32 and about 2,100 in bf16 on an H100; beyond that zs_gru_scan
-// returns kNoSpread.
+// too large for the shared memory runs as slices, a launch each.
+//
+// Wide H: a block's columns of wh (ceil(H / SMs) x 3H values) fit in its
+// shared memory, beside one staged row, up to H of about 1,550 in f32 and
+// about 2,100 in bf16 on an H100. Past that no spread fits, and the plan
+// keeps only the first Hs rows of the block's columns in shared memory (as
+// many as fit beside the other arrays). Before the scan a pack pass copies
+// rows Hs..H-1 of every block's columns into `wpack`, one float4 (bf16: 8
+// bytes) per (group of 4 rows, column) in the block's column order, so the
+// product loop reads them each step as coalesced __ldg loads, eight in
+// flight a thread, through L2 (the whole copy, 3H x (H - Hs) values, stays
+// resident there while it is under 50 MB: up to H of about 2,900 in f32).
+// Such a step is bound by those reads, not by the chain; the
+// register-cached mode is off. A spread that fits runs exactly as before
+// (Hs = H).
 #include <cuda_bf16.h>
 
 #include <algorithm>
@@ -74,11 +84,14 @@ constexpr int THREADS = 512;
 constexpr int RR = 8;           // batch rows a thread accumulates at once
 constexpr int WQ = 8;           // float4 groups of wh a thread holds in registers (when they fit)
 constexpr int BAR_STRIDE = 32;  // unsigned words between batch groups' counters (128 bytes)
+constexpr int PK = 8;           // wide spreads: packed float4 groups of wh a thread loads at once
 
 // kc hidden columns and nb batch rows a block; NK x NB blocks (blockIdx.x
-// = group * NK + column group); a block's rows of h staged cb at a time.
+// = group * NK + column group); a block's rows of h staged cb at a time;
+// rows 0..Hs-1 of its columns of wh in shared memory (Hs a multiple of 4:
+// all of pad4(H) unless the spread is wide), the rest read from wpack.
 struct Plan {
-  int kc, NK, nb, NB, cb;
+  int kc, NK, nb, NB, cb, Hs;
 };
 
 __host__ __device__ inline int pad4(int h) { return (h + 3) / 4 * 4; }
@@ -110,8 +123,12 @@ __device__ __forceinline__ float product_input(float h) {
 // KS-th float4 group of the H terms) fits in WQ float4 of registers.
 bool wh_in_registers(const Plan& p, int H) {
   const int ks = THREADS / (3 * p.kc), g4 = pad4(H) / 4;
-  return (g4 + ks - 1) / ks <= WQ;
+  return p.Hs == pad4(H) && (g4 + ks - 1) / ks <= WQ;
 }
+
+// Elements of wpack a plan reads: per column group, its rows Hs..pad4(H)-1
+// of 3 kc columns (0 when the spread is not wide).
+long pack_elems(const Plan& p, int H) { return static_cast<long>(p.NK) * (pad4(H) - p.Hs) * 3 * p.kc; }
 
 // Byte offsets of a block's shared-memory arrays (ws at 0) and their total.
 struct Layout {
@@ -122,7 +139,7 @@ template <typename S>
 __host__ __device__ inline Layout layout(const Plan& p, int H) {
   const size_t C = 3 * p.kc, H4 = pad4(H), KS = THREADS / C;
   Layout L;
-  L.hs = (H4 * C * sizeof(S) + 15) / 16 * 16;       // ws [H4][C]: the block's columns of wh
+  L.hs = (p.Hs * C * sizeof(S) + 15) / 16 * 16;     // ws [Hs][C]: the block's columns of wh, rows < Hs
   L.part = L.hs + p.cb * H4 * sizeof(float);         // hs [cb][H4]: a chunk of its rows of h_{t-1}
   L.hws = L.part + KS * p.cb * C * sizeof(float);    // part [KS][cb][C]: k-slice partial sums
   L.xs = L.hws + p.cb * C * sizeof(float);           // hws [cb][C]: their totals
@@ -144,31 +161,62 @@ __host__ __device__ inline Layout layout(const Plan& p, int H) {
 // f32 step times on an H100 at H=512 with the column-group count forced
 // (tools/gru_spread_sweep.py), B = 1 to 128; PERF.md keeps that table.
 // bf16 uses the same weights, with an even kc (columns copied in pairs).
-// False when no spread fits.
+//
+// With `wide`, when no spread holds its columns whole, every NK and chunk
+// count is tried with as many rows Hs of the columns in shared memory as
+// fit, and the step's cost adds the block's reads of the other rows from
+// wpack (bytes over ~25 KB/us, an SM's share of the card's memory rate),
+// once a row block a chunk. False when not even that fits.
 template <typename S>
-bool make_plan(Plan& best, int B, int H, int n_sm, size_t optin) {
+bool make_plan(Plan& best, int B, int H, int n_sm, size_t optin, bool wide) {
   double best_cost = -1.0;
-  for (int nk = 1; nk <= H && nk <= n_sm; ++nk) {
-    Plan p;
-    p.kc = (H + nk - 1) / nk;
-    if (sizeof(S) == 2) p.kc += p.kc & 1;  // bf16: xw's columns copied two at a time
-    p.NK = (H + p.kc - 1) / p.kc;
-    if (p.NK != nk || 3 * p.kc > THREADS) continue;  // the same spread as another nk, or too wide
-    const int nbg = n_sm / p.NK < B ? n_sm / p.NK : B;
-    p.nb = (B + nbg - 1) / nbg;
-    p.NB = (B + p.nb - 1) / p.nb;
-    p.cb = p.nb;
-    while (p.cb > 0 && layout<S>(p, H).total > optin) --p.cb;
-    if (p.cb == 0) continue;
-    const int chunks = (p.nb + p.cb - 1) / p.cb;
-    p.cb = (p.nb + chunks - 1) / chunks;  // even chunks, none larger than what fits
+  auto consider = [&](const Plan& p, int chunks, double extra) {
     const double ks = THREADS / (3 * p.kc), q4 = std::ceil(pad4(H) / 4 / ks);
     const double row_blocks = (p.nb + RR - 1) / RR, rows = p.nb < RR ? p.nb : RR;
     const double cost = 0.0086 * q4 * row_blocks * (4 * rows + (wh_in_registers(p, H) ? 0 : 4))
-                        + 0.185 * p.nb * H / 512 + 2.79 * chunks + 0.061 * q4;
+                        + 0.185 * p.nb * H / 512 + 2.79 * chunks + 0.061 * q4 + extra;
     if (best_cost < 0 || cost < best_cost) {
       best = p;
       best_cost = cost;
+    }
+  };
+  // pass 0: the columns whole on chip; pass 1 (wide, only when pass 0
+  // found nothing): rows Hs.. of them in wpack
+  for (int pass = 0; pass < (wide ? 2 : 1) && best_cost < 0; ++pass) {
+    for (int nk = 1; nk <= H && nk <= n_sm; ++nk) {
+      Plan p;
+      p.kc = (H + nk - 1) / nk;
+      if (sizeof(S) == 2) p.kc += p.kc & 1;  // bf16: xw's columns copied two at a time
+      p.NK = (H + p.kc - 1) / p.kc;
+      if (p.NK != nk || 3 * p.kc > THREADS) continue;  // the same spread as another nk, or too wide
+      const int nbg = n_sm / p.NK < B ? n_sm / p.NK : B;
+      p.nb = (B + nbg - 1) / nbg;
+      p.NB = (B + p.nb - 1) / p.nb;
+      if (pass == 0) {
+        p.Hs = pad4(H);
+        p.cb = p.nb;
+        while (p.cb > 0 && layout<S>(p, H).total > optin) --p.cb;
+        if (p.cb == 0) continue;
+        const int chunks = (p.nb + p.cb - 1) / p.cb;
+        p.cb = (p.nb + chunks - 1) / chunks;  // even chunks, none larger than what fits
+        consider(p, chunks, 0.0);
+        continue;
+      }
+      const size_t row = 3 * static_cast<size_t>(p.kc) * sizeof(S);  // a row of the block's columns
+      int last_cb = 0;
+      for (int chunks = 1; chunks <= p.nb && chunks <= 64; ++chunks) {
+        p.cb = (p.nb + chunks - 1) / chunks;
+        if (p.cb == last_cb) continue;
+        last_cb = p.cb;
+        p.Hs = 0;
+        const size_t base = layout<S>(p, H).total;
+        if (base > optin) continue;
+        p.Hs = static_cast<int>(std::min<size_t>((optin - base) / row, pad4(H))) / 4 * 4;
+        while (p.Hs > 0 && layout<S>(p, H).total > optin) p.Hs -= 4;
+        const int used = (p.nb + p.cb - 1) / p.cb;
+        const double reads = static_cast<double>(used) * ((p.cb + RR - 1) / RR);  // row blocks a step
+        consider(p, used, reads * (pad4(H) - p.Hs) * row / 25e3);
+      }
     }
   }
   return best_cost >= 0;
@@ -218,19 +266,53 @@ __device__ __forceinline__ float4 wh_group(const S* ws, int q4, int C, int c) {
   return make_float4(to_f32(wp[0]), to_f32(wp[C]), to_f32(wp[2 * C]), to_f32(wp[3 * C]));
 }
 
-template <typename S, bool WREG>
+// The same four values of column c for the g-th float4 group past Hs, from
+// the block's packed copy wg [g][C][4] (one read-only 16- or 8-byte load)
+__device__ __forceinline__ float4 wh_group_packed(const float* wg, int g, int C, int c) {
+  return __ldg(reinterpret_cast<const float4*>(wg) + static_cast<long>(g) * C + c);
+}
+__device__ __forceinline__ float4 wh_group_packed(const bf16* wg, int g, int C, int c) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(wg) + static_cast<long>(g) * C + c);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// wpack[q][g][c][e] = wh[4 (GS + g) + e][(c / kc) H + q kc + c % kc] for
+// column group q < NK, g < GW float4 groups past GS = Hs / 4, column c < 3kc
+// (0 past H): the rows a wide spread leaves out of shared memory, in the
+// order the product loop reads them. Reads coalesce over a gate's columns.
+template <typename S>
+__global__ void pack_overflow_kernel(const S* __restrict__ wh, S* __restrict__ wpack, int H, int kc,
+                                     int NK, int GS, int GW) {
+  const int C = 3 * kc;
+  const long n = static_cast<long>(NK) * GW * 4 * C;
+  for (long i = blockIdx.x * static_cast<long>(blockDim.x) + threadIdx.x; i < n;
+       i += static_cast<long>(gridDim.x) * blockDim.x) {
+    const int c = static_cast<int>(i % C);
+    const long r = i / C;
+    const int e = static_cast<int>(r % 4), g = static_cast<int>(r / 4 % GW), q = static_cast<int>(r / 4 / GW);
+    const int k = 4 * (GS + g) + e, col = q * kc + c % kc;
+    wpack[((static_cast<long>(q) * GW + g) * C + c) * 4 + e] =
+        k < H && col < H ? wh[static_cast<long>(k) * 3 * H + (c / kc) * H + col] : from_f32<S>(0.f);
+  }
+}
+
+// WREG: the thread's share of wh also in registers; WIDE: rows Hs.. of the
+// block's columns come from wpack (never both)
+template <typename S, bool WREG, bool WIDE>
 __global__ void __launch_bounds__(THREADS, 1)
 gru_scan_kernel(const S* __restrict__ xw, const S* __restrict__ wh, const S* __restrict__ bh,
-                const int* __restrict__ lengths, S* ys, float* state, unsigned* bar, int B, int T,
-                int H, Plan pl, int rev) {
+                const int* __restrict__ lengths, const S* __restrict__ wpack, S* ys, float* state,
+                unsigned* bar, int B, int T, int H, Plan pl, int rev) {
   constexpr bool F32 = std::is_same<S, float>::value;
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout L = layout<S>(pl, H);
   const int kc = pl.kc, C = 3 * kc, H4 = (H + 3) & ~3, KS = THREADS / C, G4 = H4 / 4;
-  const int H3 = 3 * H, tid = threadIdx.x;
+  const int H3 = 3 * H, tid = threadIdx.x, GS = pl.Hs / 4;
   const int g = blockIdx.x / pl.NK, q = blockIdx.x % pl.NK;
   const int k0 = q * kc, nk = min(kc, H - k0), b0 = g * pl.nb, nb = min(pl.nb, B - b0);
-  S* ws = reinterpret_cast<S*>(smem);                       // [H4][C]: column gate * kc + jj is wh[:, gate H + k0 + jj]
+  S* ws = reinterpret_cast<S*>(smem);                       // [Hs][C]: column gate * kc + jj is wh[:, gate H + k0 + jj]
   float* hs = reinterpret_cast<float*>(smem + L.hs);        // [cb][H4]
   float* part = reinterpret_cast<float*>(smem + L.part);    // [KS][cb][C]
   float* hws = reinterpret_cast<float*>(smem + L.hws);      // [cb][C]
@@ -238,6 +320,7 @@ gru_scan_kernel(const S* __restrict__ xw, const S* __restrict__ wh, const S* __r
   float* bhs = reinterpret_cast<float*>(smem + L.bhs);      // [C]
   int* lens = reinterpret_cast<int*>(smem + L.lens);        // [nb]
   unsigned* gbar = bar + BAR_STRIDE * g;
+  const S* wg = WIDE ? wpack + static_cast<long>(q) * (G4 - GS) * C * 4 : nullptr;  // [G4 - GS][C][4]
   const S zero = from_f32<S>(0.f);
 
   // xs[buf][r][gate kc + jj] = xw[b0 + r, t, gate H + k0 + jj], copied
@@ -274,10 +357,10 @@ gru_scan_kernel(const S* __restrict__ xw, const S* __restrict__ wh, const S* __r
       }
     }
   };
-  // the block's columns of wh and bh, and the first step's xw, copied
-  // asynchronously in f32 (every load in flight at once), element by
+  // the block's columns of wh (rows < Hs) and bh, and the first step's xw,
+  // copied asynchronously in f32 (every load in flight at once), element by
   // element in bf16 (once a scan)
-  for (int i = tid; i < H4 * C; i += THREADS) {
+  for (int i = tid; i < pl.Hs * C; i += THREADS) {
     const int k = i / C, c = i % C, jj = c % kc;
     const S* w = wh + static_cast<long>(k) * H3 + (c / kc) * H + k0 + jj;
     if (k >= H || jj >= nk) {
@@ -360,6 +443,19 @@ gru_scan_kernel(const S* __restrict__ xw, const S* __restrict__ wh, const S* __r
 #pragma unroll
             for (int i = 0; i < WQ; ++i)
               if (ks + i * KS < G4) accumulate<S>(acc, hs, H4, r0, nr, ks + i * KS, wr[i]);
+          } else if constexpr (WIDE) {
+            int q4 = ks;
+            for (; q4 < GS; q4 += KS) accumulate<S>(acc, hs, H4, r0, nr, q4, wh_group(ws, q4, C, c));
+            // the rows past Hs: PK loads in flight before their sums (a
+            // thread's reads through L2 would otherwise wait one by one)
+            for (; q4 + (PK - 1) * KS < G4; q4 += PK * KS) {
+              float4 w[PK];
+#pragma unroll
+              for (int u = 0; u < PK; ++u) w[u] = wh_group_packed(wg, q4 + u * KS - GS, C, c);
+#pragma unroll
+              for (int u = 0; u < PK; ++u) accumulate<S>(acc, hs, H4, r0, nr, q4 + u * KS, w[u]);
+            }
+            for (; q4 < G4; q4 += KS) accumulate<S>(acc, hs, H4, r0, nr, q4, wh_group_packed(wg, q4 - GS, C, c));
           } else {
             for (int q4 = ks; q4 < G4; q4 += KS) accumulate<S>(acc, hs, H4, r0, nr, q4, wh_group(ws, q4, C, c));
           }
@@ -409,18 +505,19 @@ cudaError_t card(int* n_sm, int* optin) {
 }
 
 // The rows a launch takes (all B when they fit, else the largest half,
-// quarter, ... that does) and their spread; false when not even one row
-// fits.
+// quarter, ... that does) and their spread: with the columns of wh whole
+// when any number of rows allows it (a large B runs in slices, as it
+// always has), else a wide spread. False when not even one row fits.
 template <typename S>
 bool slice_plan(Plan& p, int& rows, int B, int H, int n_sm, size_t optin) {
-  for (rows = B; rows > 1; rows = (rows + 1) / 2)
-    if (make_plan<S>(p, rows, H, n_sm, optin)) return true;
-  return make_plan<S>(p, rows, H, n_sm, optin);
+  for (const bool wide : {false, true}) {
+    for (rows = B;; rows = (rows + 1) / 2) {
+      if (make_plan<S>(p, rows, H, n_sm, optin, wide)) return true;
+      if (rows == 1) break;
+    }
+  }
+  return false;
 }
-
-// Returned by zs_gru_scan when no spread of wh fits (the wrapper raises
-// ValueError); every other non-zero return is a CUDA error.
-constexpr int kNoSpread = -1;
 
 template <typename S>
 int plan_of(int* plan, int B, int H) {
@@ -429,15 +526,26 @@ int plan_of(int* plan, int B, int H) {
   Plan p{};
   int rows = 0;
   const bool ok = B > 0 && slice_plan<S>(p, rows, B, H, n_sm, static_cast<size_t>(optin));
-  const int v[8] = {p.kc, p.NK, p.nb, p.NB, p.cb, ok ? static_cast<int>(layout<S>(p, H).total) : 0, rows,
-                    ok && wh_in_registers(p, H)};
-  for (int i = 0; i < 8; ++i) plan[i] = ok ? v[i] : 0;
+  long pack = ok ? pack_elems(p, H) : 0;
+  Plan last{};
+  if (ok && B % rows && make_plan<S>(last, B % rows, H, n_sm, static_cast<size_t>(optin), true))
+    pack = std::max(pack, pack_elems(last, H));  // the last slice's own spread
+  const int v[10] = {p.kc, p.NK, p.nb, p.NB, p.cb, ok ? static_cast<int>(layout<S>(p, H).total) : 0, rows,
+                     ok && wh_in_registers(p, H), std::min(p.Hs, H), static_cast<int>(pack)};
+  for (int i = 0; i < 10; ++i) plan[i] = ok ? v[i] : 0;
   return cudaSuccess;
 }
 
 template <typename S>
-int scan(const S* xw, const S* wh, const S* bh, const int* lengths, S* ys, float* state, unsigned* bar,
-         int* n_launches, int B, int T, int H, int reverse, void* stream) {
+const void* kernel_for(bool wide, bool wreg) {
+  return wide ? reinterpret_cast<const void*>(gru_scan_kernel<S, false, true>)
+              : wreg ? reinterpret_cast<const void*>(gru_scan_kernel<S, true, false>)
+                     : reinterpret_cast<const void*>(gru_scan_kernel<S, false, false>);
+}
+
+template <typename S>
+int scan(const S* xw, const S* wh, const S* bh, const int* lengths, S* wpack, S* ys, float* state,
+         unsigned* bar, int* n_launches, int B, int T, int H, int reverse, void* stream) {
   *n_launches = 0;
   if (B == 0 || T == 0) return cudaSuccess;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -446,24 +554,31 @@ int scan(const S* xw, const S* wh, const S* bh, const int* lengths, S* ys, float
   if (e != cudaSuccess) return e;
   Plan pl;
   int rows;
-  if (!slice_plan<S>(pl, rows, B, H, n_sm, static_cast<size_t>(optin))) return kNoSpread;
+  if (!slice_plan<S>(pl, rows, B, H, n_sm, static_cast<size_t>(optin))) return cudaErrorInvalidConfiguration;
   for (int r0 = 0; r0 < B; r0 += rows) {
     int nrow = B - r0 < rows ? B - r0 : rows;
     Plan p = pl;
-    if (nrow != rows && !make_plan<S>(p, nrow, H, n_sm, static_cast<size_t>(optin))) return kNoSpread;
+    if (nrow != rows && !make_plan<S>(p, nrow, H, n_sm, static_cast<size_t>(optin), true))
+      return cudaErrorInvalidConfiguration;
     const size_t smem = layout<S>(p, H).total;
-    const bool wreg = wh_in_registers(p, H);
-    const void* kernel = wreg ? reinterpret_cast<const void*>(gru_scan_kernel<S, true>)
-                              : reinterpret_cast<const void*>(gru_scan_kernel<S, false>);
-    if ((e = wreg ? zs::allow_smem(gru_scan_kernel<S, true>, smem) : zs::allow_smem(gru_scan_kernel<S, false>, smem)))
-      return e;
+    const bool wide = p.Hs < pad4(H), wreg = wh_in_registers(p, H);
+    if (wide) {  // this spread's rows past Hs, in the order its blocks read them
+      if (!wpack) return cudaErrorInvalidValue;
+      const long n = pack_elems(p, H);
+      pack_overflow_kernel<S><<<static_cast<int>(std::min<long>((n + 255) / 256, 8L * n_sm)), 256, 0, st>>>(
+          wh, wpack, H, p.kc, p.NK, p.Hs / 4, (pad4(H) - p.Hs) / 4);
+      if ((e = cudaGetLastError())) return e;
+    }
+    const void* kernel = kernel_for<S>(wide, wreg);
+    if ((e = zs::allow_smem(kernel, smem))) return e;
     if ((e = cudaMemsetAsync(bar, 0, BAR_STRIDE * p.NB * sizeof(unsigned), st))) return e;
     const S* x = xw + static_cast<long>(r0) * T * 3 * H;
     const int* len = lengths ? lengths + r0 : nullptr;
+    const S* wp = wpack;
     S* y = ys + static_cast<long>(r0) * T * H;
     // a slice's state uses the first 2 x nrow x H floats of the buffer
     // (slices run one after another on the stream)
-    void* args[] = {&x, &wh, &bh, &len, &y, &state, &bar, &nrow, &T, &H, &p, &reverse};
+    void* args[] = {&x, &wh, &bh, &len, &wp, &y, &state, &bar, &nrow, &T, &H, &p, &reverse};
     e = cudaLaunchCooperativeKernel(kernel, dim3(p.NK * p.NB), dim3(THREADS), args, smem, st);
     if (e != cudaSuccess) return e;
     ++*n_launches;
@@ -476,31 +591,36 @@ int scan(const S* xw, const S* wh, const S* bh, const int* lengths, S* ys, float
 ZS_DEFINE_ERROR_STRING
 
 // The spread zs_gru_scan (bf16 == 0) or zs_gru_scan_bf16 (bf16 != 0) picks
-// for B rows on the current device (plan[0..7] = kc, NK, nb, NB, cb, a
+// for B rows on the current device (plan[0..9] = kc, NK, nb, NB, cb, a
 // block's shared memory in bytes, rows a launch, 1 when wh sits in
-// registers; all 0 when none fits), for diagnostics.
-// Returns a CUDA error.
+// registers, Hs: the rows of the block's columns of wh held in shared
+// memory (H unless the spread is wide), and the elements of wpack the
+// call needs (0 unless wide); all 0 when none fits), for diagnostics and
+// for the wrapper's scratch. Returns a CUDA error.
 ZS_EXPORT int zs_gru_scan_plan(int* plan, int B, int H, int bf16_mode) {
   return bf16_mode ? plan_of<bf16>(plan, B, H) : plan_of<float>(plan, B, H);
 }
 
 // xw [B, T, 3H], wh [H, 3H], bh [3H], lengths [B] int32 or null -> ys
 // [B, T, H], all f32. reverse != 0 scans t = T-1 .. 0 (outputs stay in
-// original time order). bar: scratch of 32 x the SM count unsigned words
-// (the batch groups' counters). *n_launches (host memory) receives the
-// number of cooperative launches made (one unless B is split into slices).
-// Returns kNoSpread or a CUDA error.
+// original time order). wpack: scratch of plan[9] elements of
+// zs_gru_scan_plan (null when that is 0). bar: scratch of 32 x the SM
+// count unsigned words (the batch groups' counters). *n_launches (host
+// memory) receives the number of cooperative launches made (one unless B
+// is split into slices). Returns a CUDA error (cudaErrorInvalidConfiguration
+// when not even one row of a wide spread fits a block's shared memory).
 ZS_EXPORT int zs_gru_scan(const float* xw, const float* wh, const float* bh, const int* lengths,
-                          float* ys, unsigned* bar, int* n_launches, int B, int T, int H,
+                          float* wpack, float* ys, unsigned* bar, int* n_launches, int B, int T, int H,
                           int reverse, void* stream) {
-  return scan<float>(xw, wh, bh, lengths, ys, nullptr, bar, n_launches, B, T, H, reverse, stream);
+  return scan<float>(xw, wh, bh, lengths, wpack, ys, nullptr, bar, n_launches, B, T, H, reverse, stream);
 }
 
 // zs_gru_scan with xw, wh, bh and ys in bf16 and the state in f32: state is
 // scratch of 2 x B x H floats (the state each step hands to the next).
 ZS_EXPORT int zs_gru_scan_bf16(const void* xw, const void* wh, const void* bh, const int* lengths,
-                               void* ys, float* state, unsigned* bar, int* n_launches, int B, int T,
-                               int H, int reverse, void* stream) {
+                               void* wpack, void* ys, float* state, unsigned* bar, int* n_launches, int B,
+                               int T, int H, int reverse, void* stream) {
   return scan<bf16>(static_cast<const bf16*>(xw), static_cast<const bf16*>(wh), static_cast<const bf16*>(bh),
-                    lengths, static_cast<bf16*>(ys), state, bar, n_launches, B, T, H, reverse, stream);
+                    lengths, static_cast<bf16*>(wpack), static_cast<bf16*>(ys), state, bar, n_launches, B, T,
+                    H, reverse, stream);
 }

@@ -48,7 +48,13 @@
 //           terms are split between warps and their sums added in a fixed
 //           order.
 //      A step costs a group barrier and an L2 read of nb rows (24 KB at
-//      B=32), not a launch and a re-read of wh (3 MB);
+//      B=32), not a launch and a re-read of wh (3 MB). Wide H: a block's
+//      kc rows of wh fit beside one staged row up to H of about 1,480 on
+//      an H100; past that (make_plan's second pass) the block keeps its
+//      first Kr rows (a multiple of the tile's 4 columns) in shared memory
+//      and its warps read the tiles of the other rows straight from wh,
+//      whose rows are already contiguous, with read-only loads through L2
+//      each step. Such a step is bound by those reads;
 //   3. dwh = h_prev^T dhw over all B*T rows (the same tiled product, A read
 //      transposed, split over K into enough slices to fill the card, their
 //      partial products summed in a fixed order) and dbh as column sums (8
@@ -56,6 +62,8 @@
 //      atomics.
 // Tensor-core products and the passes' fusion into the recurrence are
 // later work.
+#include <algorithm>
+
 #include "common.cuh"
 
 namespace {
@@ -165,26 +173,40 @@ __global__ void sum_partials_kernel(const float* __restrict__ part, float* __res
 
 // How the recurrence is spread: kc columns and nb batch rows a block, NK x
 // NB blocks (blockIdx.x = group * NK + column group); the block's rows of
-// dhw_t are staged cb at a time.
+// dhw_t are staged cb at a time; its first Kr rows of wh (all kc unless
+// the spread is wide) sit in shared memory.
 struct Plan {
-  int kc, nb, cb, NK, NB;
+  int kc, nb, cb, NK, NB, Kr;
 };
 
 int tiles(int rows, int kc) { return ((rows + RB - 1) / RB) * ((kc + KG - 1) / KG); }
 
 size_t rec_smem_bytes(const Plan& p, int H) {
   const int nt = tiles(p.cb, p.kc), slots = nt > NWARPS ? nt : NWARPS;
-  return (static_cast<size_t>(p.kc + p.cb) * 3 * H  // wh rows, a chunk of staged dhw rows
+  return (static_cast<size_t>(p.Kr + p.cb) * 3 * H  // wh rows, a chunk of staged dhw rows
           + static_cast<size_t>(slots) * RB * KG)    // warp partial sums
          * sizeof(float);
+}
+
+// The rows of wh a batch group's blocks hold in shared memory (H unless
+// the spread is wide).
+int rows_on_chip(const Plan& p, int H) {
+  int n = 0;
+  for (int q = 0; q < p.NK; ++q) n += std::min(p.Kr, std::min(p.kc, H - q * p.kc));
+  return n;
 }
 
 // The spread on a card of n_sm SMs with optin bytes of shared memory a
 // block. For each column-group count NK (NK <= n_sm), as many batch groups
 // as the SMs left over allow (NK x NB <= n_sm), and the largest chunk of
 // staged rows that fits beside the block's rows of wh; of these, the fewest
-// chunks, then the fewest column groups. Only kc x 3H must fit (with one
-// staged row): any B has a spread. False when no NK leaves that room.
+// chunks, then the fewest column groups. Any B has a spread, in more
+// chunks. When no NK leaves room for its kc rows and one staged row (wide
+// H), every NK and chunk count is tried with as many of the rows (Kr, a
+// multiple of KG) in shared memory as fit, and the least estimated step
+// time wins: each chunk's tiles of RB batch rows read the other rows of wh
+// once (bytes over ~25 KB/us), plus ~2 us a chunk. False when not even one
+// staged row fits.
 bool make_plan(Plan& best, int B, int H, int n_sm, size_t optin) {
   const size_t row = 3 * static_cast<size_t>(H) * sizeof(float);
   int best_chunks = 0;
@@ -195,6 +217,7 @@ bool make_plan(Plan& best, int B, int H, int n_sm, size_t optin) {
     const int nbg = n_sm / p.NK < B ? n_sm / p.NK : B;
     p.nb = (B + nbg - 1) / nbg;
     p.NB = (B + p.nb - 1) / p.nb;
+    p.Kr = p.kc;
     if (p.kc * row >= optin) continue;
     p.cb = static_cast<int>((optin - p.kc * row) / row);
     if (p.cb > p.nb) p.cb = p.nb;
@@ -207,7 +230,34 @@ bool make_plan(Plan& best, int B, int H, int n_sm, size_t optin) {
       best_chunks = chunks;
     }
   }
-  return best_chunks > 0;
+  if (best_chunks) return true;
+  double best_cost = -1.0;
+  for (int nk = 1; nk <= H && nk <= n_sm; ++nk) {  // wide H
+    Plan p;
+    p.kc = (H + nk - 1) / nk;
+    p.NK = (H + p.kc - 1) / p.kc;
+    const int nbg = n_sm / p.NK < B ? n_sm / p.NK : B;
+    p.nb = (B + nbg - 1) / nbg;
+    p.NB = (B + p.nb - 1) / p.nb;
+    int last_cb = 0;
+    for (int chunks = 1; chunks <= p.nb && chunks <= 64; ++chunks) {
+      p.cb = (p.nb + chunks - 1) / chunks;
+      if (p.cb == last_cb) continue;
+      last_cb = p.cb;
+      p.Kr = 0;
+      const size_t base = rec_smem_bytes(p, H);
+      if (base > optin) continue;
+      p.Kr = static_cast<int>(std::min<size_t>((optin - base) / row, p.kc)) / KG * KG;
+      const int used = (p.nb + p.cb - 1) / p.cb;
+      const double tile_rows = static_cast<double>(used) * ((p.cb + RB - 1) / RB);  // row tiles a step
+      const double cost = tile_rows * (p.kc - p.Kr) * row / 25e3 + 2.0 * used;
+      if (best_cost < 0 || cost < best_cost) {
+        best = p;
+        best_cost = cost;
+      }
+    }
+  }
+  return best_cost >= 0;
 }
 
 // st[bb, :] = dhw[b0 + bb, t, :] for bb < n, in units V (float4 when 3H
@@ -224,10 +274,32 @@ __device__ inline void stage_rows(float* st, const float* dhw, int b0, int n, in
   }
 }
 
+// acc[i][c] += sum over this lane's n of rows[i][n] cols[c][n]: a warp
+// tile's terms n = n0, n0 + stride, ... < H3; GLOBAL: the columns are rows
+// of wh in global memory (read-only loads), else in shared memory.
+template <bool GLOBAL>
+__device__ __forceinline__ void tile_terms(float (&acc)[RB][KG], const float* const (&rows)[RB],
+                                           const float* const (&cols)[KG], int n0, int stride, int H3) {
+#pragma unroll 4
+  for (int n = n0; n < H3; n += stride) {
+    float w[KG];
+#pragma unroll
+    for (int c = 0; c < KG; ++c) w[c] = GLOBAL ? __ldg(cols[c] + n) : cols[c][n];
+#pragma unroll
+    for (int i = 0; i < RB; ++i) {
+      const float d = rows[i][n];
+#pragma unroll
+      for (int c = 0; c < KG; ++c) acc[i][c] = fmaf(d, w[c], acc[i][c]);
+    }
+  }
+}
+
 // The whole dh recurrence. The carry dh = dhz + dhv (dh z of the step, and
 // dhw_t wh^T) lives in [B, H] scratch that only the block owning those
 // rows and columns touches (ordered by __syncthreads, L1-resident), so a
 // block's shared memory holds only its rows of wh and one staged chunk.
+// WIDE: its rows from Kr on are read from wh each step.
+template <bool WIDE>
 __global__ void __launch_bounds__(REC_THREADS)
 gru_bwd_rec_kernel(const float* __restrict__ xw, const float* __restrict__ wh,
                    const float* __restrict__ hw, const float* __restrict__ ys,
@@ -237,11 +309,11 @@ gru_bwd_rec_kernel(const float* __restrict__ xw, const float* __restrict__ wh,
   const int H3 = 3 * H, tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = blockIdx.x / pl.NK, q = blockIdx.x % pl.NK;
   const int k0 = q * pl.kc, nk = min(pl.kc, H - k0), b0 = g * pl.nb, nb = min(pl.nb, B - b0);
-  float* wh_s = smem;                  // [kc][3H]: rows k0 .. k0+nk-1 of wh
-  float* st_s = wh_s + pl.kc * H3;     // [cb][3H]: a chunk of the group's rows of dhw_t
+  float* wh_s = smem;                  // [Kr][3H]: rows k0 .. k0+min(nk, Kr)-1 of wh
+  float* st_s = wh_s + pl.Kr * H3;     // [cb][3H]: a chunk of the group's rows of dhw_t
   float* red_s = st_s + pl.cb * H3;    // [slots][RB * KG]: warp partial sums
   unsigned* gbar = bar + 2 * g;
-  for (int i = tid; i < nk * H3; i += REC_THREADS) wh_s[i] = wh[static_cast<long>(k0) * H3 + i];
+  for (int i = tid; i < min(nk, pl.Kr) * H3; i += REC_THREADS) wh_s[i] = wh[static_cast<long>(k0) * H3 + i];
   __syncthreads();
 
   const int nct = (nk + KG - 1) / KG;
@@ -291,20 +363,15 @@ gru_bwd_rec_kernel(const float* __restrict__ xw, const float* __restrict__ wh,
         const float* cols[KG];
 #pragma unroll
         for (int i = 0; i < RB; ++i) rows[i] = st_s + min(rt * RB + i, n_rows - 1) * H3;
-#pragma unroll
-        for (int c = 0; c < KG; ++c) cols[c] = wh_s + min(ct * KG + c, nk - 1) * H3;
         float acc[RB][KG] = {};
-#pragma unroll 4
-        for (int n = sp * 32 + lane; n < H3; n += 32 * splits) {
-          float w[KG];
+        if (!WIDE || ct * KG < pl.Kr) {  // Kr is a multiple of KG: the whole tile is on chip
 #pragma unroll
-          for (int c = 0; c < KG; ++c) w[c] = cols[c][n];
+          for (int c = 0; c < KG; ++c) cols[c] = wh_s + min(ct * KG + c, nk - 1) * H3;
+          tile_terms<false>(acc, rows, cols, sp * 32 + lane, 32 * splits, H3);
+        } else {
 #pragma unroll
-          for (int i = 0; i < RB; ++i) {
-            const float d = rows[i][n];
-#pragma unroll
-            for (int c = 0; c < KG; ++c) acc[i][c] = fmaf(d, w[c], acc[i][c]);
-          }
+          for (int c = 0; c < KG; ++c) cols[c] = wh + static_cast<long>(k0 + min(ct * KG + c, nk - 1)) * H3;
+          tile_terms<true>(acc, rows, cols, sp * 32 + lane, 32 * splits, H3);
         }
 #pragma unroll
         for (int i = 0; i < RB; ++i)
@@ -350,10 +417,6 @@ __global__ void col_sum_kernel(const float* __restrict__ a, float* __restrict__ 
 
 ZS_DEFINE_ERROR_STRING
 
-// Returned by zs_gru_bwd when no spread of wh fits (the wrapper raises
-// ValueError); every other non-zero return is a CUDA error.
-constexpr int kNoSpread = -1;
-
 namespace {
 
 cudaError_t card(int* n_sm, int* optin) {
@@ -366,23 +429,26 @@ cudaError_t card(int* n_sm, int* optin) {
 
 }  // namespace
 
-// The spread zs_gru_bwd picks on the current device (plan[0..5] = kc, nb,
-// cb, NK, NB, a block's shared memory in bytes; all 0 when none fits), for
-// diagnostics. Returns a CUDA error.
+// The spread zs_gru_bwd picks on the current device (plan[0..6] = kc, nb,
+// cb, NK, NB, a block's shared memory in bytes, and Hs: the rows of wh a
+// batch group holds in shared memory, H unless the spread is wide; all 0
+// when none fits), for diagnostics. Returns a CUDA error.
 ZS_EXPORT int zs_gru_bwd_plan(int* plan, int B, int H) {
   int n_sm, optin;
   if (cudaError_t e = card(&n_sm, &optin)) return e;
   Plan p{};
   const bool ok = make_plan(p, B, H, n_sm, static_cast<size_t>(optin));
-  const int v[6] = {p.kc, p.nb, p.cb, p.NK, p.NB, ok ? static_cast<int>(rec_smem_bytes(p, H)) : 0};
-  for (int i = 0; i < 6; ++i) plan[i] = ok ? v[i] : 0;
+  const int v[7] = {p.kc, p.nb, p.cb, p.NK, p.NB, ok ? static_cast<int>(rec_smem_bytes(p, H)) : 0,
+                    ok ? rows_on_chip(p, H) : 0};
+  for (int i = 0; i < 7; ++i) plan[i] = ok ? v[i] : 0;
   return cudaSuccess;
 }
 
 // Inputs xw [B, T, 3H], wh [H, 3H], bh [3H], ys [B, T, H], dys [B, T, H];
 // outputs dxw [B, T, 3H], dwh [H, 3H], dbh [3H]; scratch hw and dhw
 // [B, T, 3H], dhz and dhv [B, H] (the carry) and bar [2 x the SM count]
-// (the batch groups' barrier words). Returns kNoSpread or a CUDA error.
+// (the batch groups' barrier words). Returns a CUDA error
+// (cudaErrorInvalidConfiguration when not even one staged row fits).
 ZS_EXPORT int zs_gru_bwd(const float* xw, const float* wh, const float* bh, const float* ys,
                          const float* dys, float* dxw, float* dwh, float* dbh, float* hw,
                          float* dhw, float* dhz, float* dhv, unsigned* bar, int B, int T, int H,
@@ -393,7 +459,7 @@ ZS_EXPORT int zs_gru_bwd(const float* xw, const float* wh, const float* bh, cons
   cudaError_t e = card(&n_sm, &optin);
   if (e != cudaSuccess) return e;
   Plan pl;
-  if (!make_plan(pl, B, H, n_sm, static_cast<size_t>(optin))) return kNoSpread;
+  if (!make_plan(pl, B, H, n_sm, static_cast<size_t>(optin))) return cudaErrorInvalidConfiguration;
   if ((e = cudaMemsetAsync(bar, 0, 2 * pl.NB * sizeof(unsigned), st))) return e;
 
   hprev_gemm_kernel<false><<<dim3((H3 + TN - 1) / TN, (M + TM - 1) / TM), GEMM_THREADS, 0, st>>>(
@@ -401,11 +467,12 @@ ZS_EXPORT int zs_gru_bwd(const float* xw, const float* wh, const float* bh, cons
   if ((e = cudaGetLastError())) return e;
 
   const size_t smem = rec_smem_bytes(pl, H);
-  if ((e = zs::allow_smem(gru_bwd_rec_kernel, smem))) return e;
+  const void* rec = pl.Kr < pl.kc ? reinterpret_cast<const void*>(gru_bwd_rec_kernel<true>)
+                                  : reinterpret_cast<const void*>(gru_bwd_rec_kernel<false>);
+  if ((e = zs::allow_smem(rec, smem))) return e;
   const float* hw_c = hw;
   void* args[] = {&xw, &wh, &hw_c, &ys, &dys, &dxw, &dhw, &dhz, &dhv, &bar, &B, &T, &H, &pl, &rev};
-  e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(gru_bwd_rec_kernel),
-                                  dim3(pl.NK * pl.NB), dim3(REC_THREADS), args, smem, st);
+  e = cudaLaunchCooperativeKernel(rec, dim3(pl.NK * pl.NB), dim3(REC_THREADS), args, smem, st);
   if (e != cudaSuccess) return e;
 
   // dwh in S K-slices (enough blocks to fill the card), their partial

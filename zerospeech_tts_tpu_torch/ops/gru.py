@@ -35,6 +35,7 @@ its first step) and r, z, n recomputed from it:
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -87,24 +88,32 @@ def gru_scan_plain(xw, wh, bh, lengths=None, *, reverse: bool = False):
     return ys
 
 
-_NO_SPREAD = -1  # zs_gru_scan / zs_gru_bwd: no spread of wh over the co-resident blocks fits
 _BAR_WORDS = 32  # zs_gru_scan: barrier words a batch group (a 128-byte line each)
 
 
 def scan_plan(device: torch.device, b: int, h: int, dtype: torch.dtype = torch.float32) -> tuple[int, ...]:
-    """Diagnostic: the spread of kernel 2 that ``zs_gru_scan`` (or, for bf16,
+    """The spread of kernel 2 that ``zs_gru_scan`` (or, for bf16,
     ``zs_gru_scan_bf16``) picks for b rows on ``device`` (csrc/gru.cu
     ``make_plan``): hidden columns a block, column groups, batch rows a
     block, batch groups, rows staged a chunk, a block's dynamic shared
-    memory in bytes, rows a launch, and 1 when a thread holds its share of
-    wh in registers; all 0 when none fits."""
+    memory in bytes, rows a launch, 1 when a thread holds its share of wh
+    in registers, Hs (the rows of a block's columns of wh in shared memory:
+    h, unless the spread is wide and reads the rest from a packed copy
+    through L2), and the elements of that copy; all 0 when none fits."""
     lib = build.load("gru")
-    plan = torch.zeros(8, dtype=torch.int32)
+    plan = torch.zeros(10, dtype=torch.int32)
     with torch.cuda.device(device):
         err = build.bind(lib, "zs_gru_scan_plan", 1, 3, stream=False)(
             plan.data_ptr(), b, h, int(dtype == torch.bfloat16))
     build.check(lib, err, "gru plan")
     return tuple(plan.tolist())
+
+
+@functools.lru_cache(maxsize=None)
+def _pack_elems(device_index: int, b: int, h: int, dtype: torch.dtype) -> int:
+    """Elements of kernel 2's packed copy of wh for this shape (0 unless
+    the spread is wide); a pure function of the card and the shape."""
+    return scan_plan(torch.device("cuda", device_index), b, h, dtype)[9]
 
 
 def gru_scan(xw, wh, bh, lengths=None, *, reverse: bool = False):
@@ -113,10 +122,11 @@ def gru_scan(xw, wh, bh, lengths=None, *, reverse: bool = False):
     bf16 ``ys``): ONE cooperative launch runs all T steps (at most a block
     per SM, each owning some hidden columns and batch rows with its columns
     of wh on chip, a barrier per batch group between steps). Any B (a
-    batch too large for the shared memory runs in slices, a launch each);
-    raises ValueError when a block's columns of wh (ceil(H / SMs) x 3H
-    values, plus one staged f32 row of h) exceed its shared memory on every
-    spread (H above ~1,500 in f32, ~2,100 in bf16 on an H100)."""
+    batch too large for the shared memory runs in slices, a launch each)
+    and any H: where a block's columns of wh (ceil(H / SMs) x 3H values)
+    outgrow its shared memory (H above ~1,550 in f32, ~2,100 in bf16 on an
+    H100), it keeps the first Hs rows there and reads the rest each step
+    from a copy packed for it (scratch allocated here)."""
     if xw.device.type == "cpu":
         return gru_scan_plain(xw, wh, bh, lengths, reverse=reverse)
     b, t, h = _check_args(xw, wh, bh, lengths, reverse)
@@ -131,17 +141,17 @@ def gru_scan(xw, wh, bh, lengths=None, *, reverse: bool = False):
     bar = torch.empty(_BAR_WORDS * n_sm, dtype=torch.int32, device=xw.device)  # scratch: group counters
     n_launches = ctypes.c_int(0)
     lib = build.load("gru")
+    n_pack = _pack_elems(xw.device.index, b, h, dt) if b else 0
+    wpack = torch.empty(n_pack, device=xw.device, dtype=dt) if n_pack else None  # scratch: wh past Hs
     ptrs = [xw.data_ptr(), wh.data_ptr(), bh.data_ptr(),
-            None if lengths is None else lengths.data_ptr(), ys.data_ptr()]
+            None if lengths is None else lengths.data_ptr(),
+            None if wpack is None else wpack.data_ptr(), ys.data_ptr()]
     if dt == torch.bfloat16:
         state = torch.empty(2, b, h, device=xw.device)  # scratch: the f32 state a step hands on
         ptrs.append(state.data_ptr())
     fn = build.bind(lib, "zs_gru_scan" if dt == torch.float32 else "zs_gru_scan_bf16", len(ptrs) + 2, 4)
     err = fn(*ptrs, bar.data_ptr(), ctypes.addressof(n_launches), b, t, h, int(reverse),
              build.stream_of(xw))
-    if err == _NO_SPREAD:
-        raise ValueError(f"gru_scan: H={h} ({dt}) does not fit: a block's columns of wh exceed its "
-                         "shared memory on every spread over the co-resident blocks")
     build.check(lib, err, "gru kernel")
     global launches, bf16_launches
     if dt == torch.float32:
@@ -192,13 +202,14 @@ def gru_bwd_plain(xw, wh, bh, ys, dys, *, reverse: bool = False):
 
 
 def bwd_plan(device: torch.device, b: int, h: int) -> tuple[int, ...]:
-    """Diagnostic: the spread of kernel 3's dh recurrence that
-    ``zs_gru_bwd`` picks on ``device`` (csrc/gru_bwd.cu ``make_plan``): dh
-    columns and batch rows a block, staged rows a chunk, column groups,
-    batch groups, and a block's dynamic shared memory in bytes; all 0 when
-    none fits."""
+    """The spread of kernel 3's dh recurrence that ``zs_gru_bwd`` picks
+    on ``device`` (csrc/gru_bwd.cu ``make_plan``): dh columns and batch
+    rows a block, staged rows a chunk, column groups, batch groups, a
+    block's dynamic shared memory in bytes, and Hs (the rows of wh a batch
+    group holds in shared memory: h, unless the spread is wide and reads
+    the rest from wh each step); all 0 when none fits."""
     lib = build.load("gru_bwd")
-    plan = torch.zeros(6, dtype=torch.int32)
+    plan = torch.zeros(7, dtype=torch.int32)
     with torch.cuda.device(device):
         err = build.bind(lib, "zs_gru_bwd_plan", 1, 2, stream=False)(plan.data_ptr(), b, h)
     build.check(lib, err, "gru_bwd plan")
@@ -212,9 +223,10 @@ def gru_bwd(xw, wh, bh, ys, dys, *, reverse: bool = False):
     per SM, each owning some batch rows and columns of dh with its rows of
     wh resident in shared memory, a barrier per batch group between
     steps), then a tiled reduction for dwh and a column sum for dbh, all
-    issued from one C call. Any B; raises ValueError when a block's rows
-    of wh (ceil(H / SMs) x 3H f32, plus one staged row) exceed its shared
-    memory on every spread (H above ~1,480 on an H100)."""
+    issued from one C call. Any B and any H: where a block's rows of wh
+    (ceil(H / SMs) x 3H f32) outgrow its shared memory (H above ~1,480 on
+    an H100), it keeps the first of them there and reads the others from
+    wh each step."""
     if xw.device.type == "cpu":
         return gru_bwd_plain(xw, wh, bh, ys, dys, reverse=reverse)
     b, t, h = _bwd_check(xw, wh, bh, ys, dys)
@@ -238,9 +250,6 @@ def gru_bwd(xw, wh, bh, ys, dys, *, reverse: bool = False):
         carry[0].data_ptr(), carry[1].data_ptr(), bar.data_ptr(), b, t, h, int(reverse),
         build.stream_of(xw),
     )
-    if err == _NO_SPREAD:
-        raise ValueError(f"gru_bwd: H={h} does not fit: a block's rows of wh exceed its shared "
-                         "memory on every spread over the co-resident blocks")
     build.check(lib, err, "gru_bwd kernel")
     global bwd_launches
     bwd_launches += 1

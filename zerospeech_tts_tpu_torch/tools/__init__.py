@@ -1,2 +1,2 @@
-"""Tools around the port: the seeded flagship workload and the slice
-profiler (run on a CUDA card)."""
+"""Tools around the port: the seeded flagship workload, the profilers, the
+A/B runner and the convergence demo (run on a CUDA card)."""

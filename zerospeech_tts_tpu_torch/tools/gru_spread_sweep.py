@@ -23,7 +23,7 @@ from pathlib import Path
 import torch
 
 SHAPES = ((1, 256), (2, 256), (6, 256), (16, 128), (32, 128), (64, 32), (128, 32))
-FORCE_AT = "    if (p.NK != nk || 3 * p.kc > THREADS) continue;"
+FORCE_AT = "      if (p.NK != nk || 3 * p.kc > THREADS) continue;"
 
 
 def main(argv=None) -> dict:
@@ -61,14 +61,14 @@ def main(argv=None) -> dict:
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def forced(lib):
-        fn = build.bind(lib, "zs_gru_scan", 7, 4)
+        fn = build.bind(lib, "zs_gru_scan", 8, 4)
 
         def run(xw, wh, bh):
             b, t, h3 = xw.shape
             ys = torch.empty(b, t, h3 // 3, device=dev)
             bar = torch.empty(32 * n_sm, dtype=torch.int32, device=dev)
             n = ctypes.c_int(0)
-            err = fn(xw.data_ptr(), wh.data_ptr(), bh.data_ptr(), None, ys.data_ptr(), bar.data_ptr(),
+            err = fn(xw.data_ptr(), wh.data_ptr(), bh.data_ptr(), None, None, ys.data_ptr(), bar.data_ptr(),
                      ctypes.addressof(n), b, t, h3 // 3, 0, build.stream_of(xw))
             return ys if err == 0 else None
         return run

@@ -16,6 +16,14 @@ Steps run eagerly; every random draw (dropout, Gumbel noise, stage-2 target
 speakers, penalty mixes) comes from a noise source (models/layers.py),
 by default the state's generator, so a test can feed JAX's draws.
 Each step leaves the (clipped) gradients in the parameters' ``.grad``.
+
+Batches come from a ``DeviceDataset`` (sampled on the device with the
+state's generator) or from any iterator of batch dicts, such as the host
+``SegmentLoader`` (data/loader.py). With ``check_numerics`` every step's
+losses and per-module gradient norms are checked, and the first
+non-finite one raises ``FloatingPointError`` naming the phase and step
+(the counterpart of JAX's ``jax_debug_nans``); without it nothing is
+checked and nothing waits for the device.
 """
 
 from __future__ import annotations
@@ -75,8 +83,10 @@ def _acc(logits, labels):
 
 
 class Solver:
-    def __init__(self, hps: Hps):
+    def __init__(self, hps: Hps, check_numerics: bool = False):
         self.hps = hps
+        self.check_numerics = check_numerics
+        self.grad_norms: dict[str, torch.Tensor] = {}  # each module's last gradient norm (before clipping)
 
     # ------------------------------------------------------- shared pieces
 
@@ -99,6 +109,7 @@ class Solver:
         for n in names:
             gs = [next(grads) for _ in params[n]]
             norm = torch.sqrt(sum((g * g).sum() for g in gs))
+            self.grad_norms[n] = norm
             scale = torch.where(norm < mx, torch.ones_like(norm), mx / norm)
             for p, g in zip(params[n], gs):
                 p.grad = g * scale
@@ -268,31 +279,58 @@ class Solver:
         return {"pretrain_AE": self.step_pretrain_ae, "pretrain_C": self.step_pretrain_clf,
                 "train": self.step_train}[mode]
 
-    def train(self, state: TrainState, dataset, mode: str, iters: int, logger=None, ckpt=None,
+    def check_finite(self, mode: str, state: TrainState, metrics: dict) -> None:
+        """Raise FloatingPointError when a loss of ``metrics`` or a module's
+        gradient norm of the step just taken is not finite (one wait for
+        the device)."""
+        named = {**{f"loss {k}": v for k, v in metrics.items()},
+                 **{f"gradient norm of {n}": v for n, v in self.grad_norms.items()}}
+        dev = state.device
+        finite = torch.stack([torch.isfinite(torch.as_tensor(v)).all().to(dev) for v in named.values()])
+        if not bool(finite.all()):
+            bad = [k for k, ok in zip(named, finite.tolist()) if not ok]
+            raise FloatingPointError(f"--check-numerics: phase {mode}, step {state.step}: non-finite {bad}")
+
+    def train(self, state: TrainState, data, mode: str, iters: int, logger=None, ckpt=None,
               log_interval: int | None = None, save_interval: int | None = None,
               pairs: bool = True) -> dict:
-        """One phase of ``iters`` iterations with batches sampled on the
-        device from ``dataset`` (data/device_dataset.py) with the state's
-        generator, updating ``state`` in place. For patchGAN an iteration is
-        n_critic critic steps and one generator step. Logs and saves every
-        log/save interval; returns the last iteration's metrics."""
+        """One phase of ``iters`` iterations, updating ``state`` in place.
+        ``data`` is a ``DeviceDataset`` (data/device_dataset.py; batches
+        sampled on the device with the state's generator, the pair fields
+        when ``pairs``) or an iterator of batch dicts (the
+        ``SegmentLoader``, whose batches carry the pair fields it was made
+        with). For patchGAN an iteration is n_critic critic steps, each on
+        a batch of its own, and one generator step on the next batch. Logs
+        and saves every log/save interval; returns the last iteration's
+        metrics."""
         h = self.hps
         log_interval = log_interval or h.log_interval
         save_interval = save_interval or h.save_interval
         want_pairs = pairs and mode in ("pretrain_AE", "train") and h.lambda_pair > 0
 
-        def sample(p=False):
-            return dataset.sample_batch(state.gen, pairs=p)
+        if hasattr(data, "sample_batch"):
+            def sample(p=False):
+                return data.sample_batch(state.gen, pairs=p)
+        else:
+            def sample(p=False):
+                return next(data)
+
+        def step(fn, batch):
+            self.grad_norms.clear()  # this step's modules only
+            m = fn(state, batch)
+            if self.check_numerics:
+                self.check_finite(mode, state, m)
+            return m
 
         self.stamp_train_start(state, mode)
         metrics = {}
         for i in range(iters):
             if mode == "patchGAN":
                 for _ in range(h.n_critic):
-                    m_d = self.step_patch_d(state, sample())
-                metrics = {**m_d, **self.step_patch_g(state, sample())}
+                    m_d = step(self.step_patch_d, sample())
+                metrics = {**m_d, **step(self.step_patch_g, sample())}
             else:
-                metrics = self.step_fn(mode)(state, sample(want_pairs))
+                metrics = step(self.step_fn(mode), sample(want_pairs))
             if logger and (i + 1) % log_interval == 0:
                 logger.log(state.step, metrics, prefix=mode)
             if ckpt and (i + 1) % save_interval == 0:
