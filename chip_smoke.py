@@ -78,6 +78,20 @@
    whose trace must name kernels 2 and 3; train2 (one GAN cycle) from the
    loader; then steps/s of the loader route beside the --device-data route
    on the same 20-iteration schedule (printed, no bar).
+6c. Multi-device at flagship width (multi_device_path): tools/dp_parity.py
+   with two ranks on cuda:0 over gloo (and over NCCL on two cards where two
+   are visible), one step of each kind from Adam moments that are not zero
+   against the single-process step (ranks bit-equal; parameters, gradients
+   and pre-clip gradient norms within 1e-5 relative; metrics within 1e-4),
+   and again with a planted fault (the gradient all_reduce left undivided
+   by the world size), which every step must fail;
+   train1 --mesh data=2 from the SegmentLoader and with --device-data on
+   the host phase's corpus (rank 0 alone prints and writes, its checkpoint
+   loads, finite losses, kernels 2 and 3 launched), its steps/s beside one
+   process's; train1 over NCCL at world 1 (the data-parallel code path);
+   the conversion workload through Converter(devices=["cuda:0", "cuda:0"])
+   against one device (units bit for bit or within a 1e-4 logit margin,
+   PCM within 1 LSB, kernels 1, 2 and 4 held at this route's inputs).
 7. Prints the card (nvidia-smi name, power limit), one JSON line with the
    kernels' results (``launches``: the count on the path the kernel's slice
    ported, conversion or training; ``launches_by_path``: each path's own
@@ -911,10 +925,11 @@ def main() -> None:
     train = train_path(OUT / "train")
     mel = mel_path(OUT / "mel")
     host = host_data_path(OUT / "host")
+    multi = multi_device_path(OUT / "multi", OUT / "host", OUT)
     by_path = {"conversion": conv_launches, **bf16.pop("launches"), "serve": served.pop("launches"),
                **corpus.pop("launches"), "training": train.pop("launches"),
                "convert_after_training": train.pop("convert_launches"), **mel.pop("launches"),
-               "host_data": host.pop("launches")}
+               "host_data": host.pop("launches"), **multi.pop("launches")}
     path["gru_bwd"] = train.pop("path")
     step_check = card_vs_cpu_steps()
     check("jax" not in sys.modules, "jax was imported")
@@ -938,7 +953,7 @@ def main() -> None:
              reference_unit_agreement=agree,
              reference_pcm_rel_l2=pcm_rel, corpus=corpus, training=train,
              gru_bf16_like_for_like=results["gru_bf16_vs_cudnn"], gru_bf16_control=BF16_CONTROL,
-             bf16_routes=bf16, serve=served, mel=mel, wide_h=wide, host_data=host,
+             bf16_routes=bf16, serve=served, mel=mel, wide_h=wide, host_data=host, multi_device=multi,
              card_vs_cpu_steps=step_check, card=card_line()), indent=2) + "\n")
     print(card_line())
     print(json.dumps({"kernels": kernels}))
@@ -1742,6 +1757,240 @@ def host_data_path(work: Path, device: str = "cuda", iters: int = 20) -> dict:
     return dict(launches=launches, wall_s=wall, preprocess_workers_s=pre["seconds"], preprocess_one_s=one["seconds"],
                 held=held, trace_bytes=trace.stat().st_size, phases={**r1["phases"], **r2["phases"]},
                 steps_per_s=rates)
+
+
+# one rank of a launched world: join the group on the device and over the
+# backend named first (gloo for two ranks on one card), run the CLI on the
+# other arguments, then report this process's kernel launches on stderr
+RANK_CLI = ("import json, sys\n"
+            "from zerospeech_tts_tpu_torch import cli, ops, parallel\n"
+            "parallel.initialize(device=sys.argv[1], backend=sys.argv[2])\n"
+            "cli.main(sys.argv[3:])\n"
+            "print('LAUNCHES ' + json.dumps(ops.launch_counts()), file=sys.stderr)\n")
+
+
+def rank_launches(outs) -> dict:
+    """The kernel launches the ranks of a world reported, summed."""
+    total: dict = {}
+    for _, _, err in outs:
+        line = [x for x in err.splitlines() if x.startswith("LAUNCHES ")][-1]
+        for k, v in json.loads(line[len("LAUNCHES "):]).items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def steps_per_s(text: str) -> dict:
+    """{phase: steps/s} from the phase lines a training verb printed."""
+    import re
+
+    return {m.group(1): float(m.group(2)) for m in re.finditer(r"^ +(\w+): \d+ steps in [\d.]+s \(([\d.]+) steps/s\)",
+                                                                 text, re.M)}
+
+
+def dp_train(work: Path, host: Path, world: int, backend: str, local_ranks, iters: int, hps_path: Path,
+             device: str = "cuda") -> dict:
+    """``train1 --mesh data=<world>`` over ``backend`` from the SegmentLoader
+    and with --device-data (host_data_path's corpus and index), each from a
+    fresh -ckpt_dir: every rank exits 0, rank 1 prints nothing, the
+    directory holds rank 0's files alone (hps.json, the log, the final
+    step), the log's losses are finite and the step loads into a fresh
+    state. Returns each route's steps/s (rank 0's phase lines) and the
+    ranks' kernel launches, summed."""
+    import numpy as np
+
+    from zerospeech_tts_tpu_torch.config import DEFAULT_HPS_PATH, load_configs
+    from zerospeech_tts_tpu_torch.parallel import launch
+    from zerospeech_tts_tpu_torch.train import CheckpointManager, init_state
+
+    hps, _ = load_configs(DEFAULT_HPS_PATH)
+    out = {}
+    for route, extra in (("loader", []), ("device_data", ["--device-data"])):
+        ck = work / f"ck_{backend}_{world}_{route}"
+        t0 = time.perf_counter()
+        outs = launch(["-c", RANK_CLI, device, backend, "train1", "-dataset_path", str(host / "ds"), "-index_path",
+                       str(host / "idx.json"), "-ckpt_dir", str(ck), "--hps", str(hps_path), "--iters-override",
+                       str(iters), "--mesh", f"data={world}", "--device", device, *extra], world,
+                      local_ranks=local_ranks, timeout=600)
+        wall = time.perf_counter() - t0
+        for r, (rc, _, err) in enumerate(outs):
+            check(rc == 0, f"train1 --mesh data={world} ({backend}, {route}) rank {r} exited {rc}:\n{err[-3000:]}")
+        check(all(o.strip() == "" for _, o, _ in outs[1:]), f"{route}: a rank above 0 printed")
+        files = sorted(str(f.relative_to(ck)) for f in ck.rglob("*") if f.is_file()
+                       and not f.name.startswith("events.out.tfevents"))
+        check(files == ["hps.json", "logs/metrics.jsonl", f"step_{3 * iters}.pt"], f"{route}: files {files}")
+        lines = [json.loads(x) for x in (ck / "logs" / "metrics.jsonl").read_text().splitlines()]
+        check(len(lines) == 3 and len({(x["mode"], x["step"]) for x in lines}) == 3,
+              f"{route}: {len(lines)} log lines (want one a phase, each once)")
+        check(all(np.isfinite(v) for x in lines for k, v in x.items() if k not in ("mode", "step")),
+              f"{route}: non-finite logged losses")
+        st = CheckpointManager(ck, hps=hps, read_only=True).restore(init_state(hps, device=device))
+        check(st.step == 3 * iters, f"{route}: rank 0's checkpoint restores step {st.step}")
+        n = rank_launches(outs)
+        check(device != "cuda" or (n["gru"] > 0 and n["gru_bwd"] > 0), f"{route}: kernels 2 and 3 launched {n}")
+        rates = steps_per_s(outs[0][1])
+        check(set(rates) == {"pretrain_AE", "pretrain_C", "train"}, f"{route}: phase lines {rates}")
+        out[route] = dict(steps_per_s=rates, wall_s=wall, launches=n, log_lines=len(lines))
+        print(f"  train1 --mesh data={world} over {backend} ({route}, {iters} iterations a phase, ranks on cards "
+              f"{local_ranks or list(range(world))}): steps/s " + " ".join(f"{k} {v:.3f}" for k, v in rates.items())
+              + f"; wall {wall:.1f} s; launches {out[route]['launches']}", flush=True)
+    return out
+
+
+def multi_device_path(work: Path, host: Path, conv_out: Path, iters: int = 10, device: str = "cuda") -> dict:
+    """Multi-device execution at flagship width on the card(s):
+    (a) data-parallel training, two ranks on cuda:0 over gloo (and over
+    NCCL on two cards where two are visible): tools/dp_parity.py (one step
+    of each kind, from Adam moments that are not zero, against the
+    single-process step on cuda:0, held to dp_parity.failures: every rank's
+    updated parameters bit-equal; each updated module's parameters,
+    gradient and pre-clip gradient norm within 1e-5 relative; the metrics
+    within 1e-4); the same case with the planted fault (the gradient
+    all_reduce without its division by the world size), where every step
+    must miss a bar; then dp_train; steps/s beside the world-1 run of the
+    same command (--mesh data=1, one process), a record and not a claim:
+    two ranks share one card. (b) World 1 over NCCL: train1, one iteration
+    a phase, through the data-parallel code path. (c) The conversion
+    workload through Converter(devices=["cuda:0", "cuda:0"]) against one
+    device at GL-100: units bit for bit (or apart only within a 1e-4 logit
+    margin), PCM within 1 LSB, kernels 1, 2 and 4 held at the inputs this
+    route gave them, launches counted, warm walls of both."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from zerospeech_tts_tpu_torch import cli, ops
+    from zerospeech_tts_tpu_torch.config import DEFAULT_HPS_PATH, load_configs
+    from zerospeech_tts_tpu_torch.convert import Converter
+    from zerospeech_tts_tpu_torch.dsp.wavio import load_wav
+    from zerospeech_tts_tpu_torch.export import load_export
+    from zerospeech_tts_tpu_torch.params import from_flax
+    from zerospeech_tts_tpu_torch.parallel import launch
+    from zerospeech_tts_tpu_torch.tools import dp_parity
+    from zerospeech_tts_tpu_torch.tools.workload import TARGETS
+
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    hps, _ = load_configs(DEFAULT_HPS_PATH)
+    hps_path = work / "hps.json"  # the flagship's, logging once a phase
+    hps_path.write_text(json.dumps(dict(json.loads(Path(DEFAULT_HPS_PATH).read_text()), log_interval=iters)))
+    worlds = [("gloo", [0, 0])] + ([("nccl", None)] if torch.cuda.device_count() >= 2 else [])
+    report: dict = {"dp_parity": {}, "train": {}}
+    launches = {}
+    case = dp_parity.make_case(hps, seed=0, device=device)
+    for backend, local_ranks in worlds:
+        t0 = time.perf_counter()
+        par = dp_parity.run(case, world=2, device=device, backend=backend, local_ranks=local_ranks)
+        wall = time.perf_counter() - t0
+        for name, r in par["report"].items():
+            print(f"  dp_parity {backend} ({par['device']}, world 2) {name}: params rel-L2 "
+                  + " ".join(f"{n} {v:.2e}" for n, v in r["param_rel"].items()) + ", max |diff| "
+                  + " ".join(f"{n} {v:.2e}" for n, v in r["param_max_abs"].items()) + "; gradient rel-L2 "
+                  + " ".join(f"{n} {v:.2e}" for n, v in r["grad_rel_l2"].items()) + "; pre-clip norm rel "
+                  + " ".join(f"{n} {v:.2e}" for n, v in r["grad_norm_rel"].items())
+                  + f" (each <= {dp_parity.BAR}); metrics rel <= {max(r['metrics_rel'].values()):.2e} (1e-4); "
+                  f"ranks equal {r['ranks_equal']}", flush=True)
+        missed = dp_parity.failures(par["report"])
+        check(not missed, f"dp_parity {backend}: " + "; ".join(missed))
+        report["dp_parity"][backend] = dict(par["report"], wall_s=wall)
+        if backend == "gloo":  # the planted fault must miss a bar in every step
+            ctl = dp_parity.failures(dp_parity.run(case, world=2, device=device, backend=backend,
+                                                   local_ranks=local_ranks, control=True)["report"])
+            caught = {name for name in par["report"] if any(x.startswith(name + ": ") for x in ctl)}
+            print(f"  dp_parity control (gradient all_reduce undivided by the world size): {len(ctl)} bars "
+                  f"missed, steps caught {len(caught)} of {len(par['report'])}: " + "; ".join(ctl), flush=True)
+            check(caught == set(par["report"]), f"dp_parity control: steps {set(par['report']) - caught} met "
+                  "every bar with a gradient twice its size")
+            report["dp_parity"]["control_missed"] = ctl
+        report["train"][backend] = dp_train(work, host, 2, backend, local_ranks, iters, hps_path, device)
+        for route, v in report["train"][backend].items():
+            launches[f"multi_device_dp_{backend}_{route}"] = v.pop("launches")
+    one = {}
+    for route, extra in (("loader", []), ("device_data", ["--device-data"])):
+        r = cli.main(["train1", "-dataset_path", str(host / "ds"), "-index_path", str(host / "idx.json"),
+                      "-ckpt_dir", str(work / f"ck_one_{route}"), "--hps", str(hps_path), "--iters-override",
+                      str(iters), "--mesh", "data=1", "--device", device, *extra])
+        r.pop("state")
+        one[route] = {k: v["steps_per_s"] for k, v in r["phases"].items()}
+    report["train"]["one_process"] = one
+    print("  train1 steps/s, world 1 (one process) against world 2 on one card over gloo: " + "; ".join(
+        f"{route} " + " ".join(f"{k} {one[route][k]:.3f} / {report['train']['gloo'][route]['steps_per_s'][k]:.3f}"
+                               for k in one[route]) for route in one), flush=True)
+
+    # (b) world 1 over NCCL through the data-parallel code path
+    ck = work / "ck_nccl_1"
+    outs = launch(["-c", RANK_CLI, device, "nccl" if device == "cuda" else "gloo", "train1", "-dataset_path",
+                   str(host / "ds"), "-index_path", str(host / "idx.json"), "-ckpt_dir", str(ck), "--hps",
+                   str(hps_path), "--iters-override", "1", "--device", device, "--device-data"],
+                  1, timeout=600)
+    rc, o, err = outs[0]
+    check(rc == 0 and "stage-1 done at step 3" in o, f"train1 over NCCL at world 1 exited {rc}:\n{err[-3000:]}")
+    launches["multi_device_nccl_1"] = rank_launches(outs)
+    check(device != "cuda" or launches["multi_device_nccl_1"]["gru_bwd"] > 0, "NCCL world 1: kernel 3 not launched")
+    print(f"  train1 over NCCL, world 1: step 3, launches {launches['multi_device_nccl_1']}", flush=True)
+
+    # (c) conversion split over ["cuda:0", "cuda:0"]
+    b = load_export(conv_out / "bundle")
+    enc_sd, dec_sd = from_flax({"enc": b.enc, "dec": b.dec})
+    wav_paths = sorted((conv_out / "wavs").glob("*.wav"))
+    wavs = [load_wav(p, b.acfg.sr) for p in wav_paths]
+    ids = [dict(b.speakers)[t] for t in TARGETS]
+    splits = {"split": [f"{device}:0" if device == "cuda" else device] * 2}
+    if device == "cuda" and torch.cuda.device_count() >= 2:  # and over every card where several are visible
+        splits["cards"] = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    convs = {k: Converter(b.hps, b.acfg, enc_sd, dec_sd, stats=b.stats, feat=b.feat, device=device, devices=d)
+             for k, d in (("one", None), *splits.items())}
+    res, walls = {}, {k: [] for k in convs}
+    for k in ("one", *[x for k in splits for x in (k, k)], "one"):  # warm, then timed in turns
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res[k] = convs[k].convert_wavs_multi(wavs, ids, tgt_names=list(TARGETS))
+        torch.cuda.synchronize()
+        walls[k].append(time.perf_counter() - t0)
+    calls: dict = {}
+    with capture(("frontend", "gru", "griffin_lim"), calls):
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res["split"] = convs["split"].convert_wavs_multi(wavs, ids, tgt_names=list(TARGETS))
+        torch.cuda.synchronize()
+        walls["split"].append(time.perf_counter() - t0)
+        launches["multi_device_convert"] = ops.launch_counts()
+    for name in ("frontend", "gru", "griffin_lim"):
+        n = sum(count for _, _, count in calls[name].values())
+        check(n > 0 and n == launches["multi_device_convert"][name],
+              f"split conversion: kernel {name} launched {launches['multi_device_convert'][name]}, {n} captured")
+    held = {name: hold_path_calls(name, calls[name], "split conversion") for name in ("frontend", "gru", "griffin_lim")}
+    (u1, w1), one = res["one"], convs["one"]
+    for k, devs in splits.items():
+        u2, w2 = res[k]
+        flips = bits = 0
+        worst_margin = 0.0
+        for i, (a, c) in enumerate(zip(u1, u2)):
+            check(a.shape == c.shape, f"{k} conversion utt {i}: units {c.shape} against {a.shape}")
+            bits += a.size
+            if (a != c).any():
+                flips += int((a != c).sum())
+                s_mean, s_std = one._src_stats(1, None)
+                (_, _, arrays, to_dev), = one._pcm_chunks(one._trimmed([wavs[i]], True), s_mean, s_std)
+                x, tl = to_dev(one.device, *arrays)
+                with torch.inference_mode():
+                    lg = one.encoder(x, lengths=tl)[0, : a.shape[0]].float().cpu().numpy()
+                worst_margin = max(worst_margin, float(np.abs(lg[..., 0] - lg[..., 1])[a != c].max()))
+        check(worst_margin < 1e-4, f"{k} conversion: units differ where the logit margin is {worst_margin}")
+        lsb = max(int(np.abs(p.astype(np.int32) - q.astype(np.int32)).max())
+                  for t1, t2 in zip(w1, w2) for p, q in zip(t1, t2))
+        check(lsb <= 1, f"{k} conversion: PCM differs from one device's by {lsb} LSB")
+        report[f"convert_{k}"] = dict(devices=devs, unit_flips=flips, unit_bits=bits, worst_flip_margin=worst_margin,
+                                      pcm_max_lsb=lsb, walls_s=walls[k], walls_one_s=walls["one"],
+                                      **({"held": held} if k == "split" else {}))
+        print(f"  conversion over {devs} against one device ({len(wavs)} wavs x {len(TARGETS)} targets, "
+              f"GL-{b.acfg.gl_iters}): {flips} of {bits} unit bits differ (margin < 1e-4), PCM within {lsb} LSB "
+              f"(<= 1); warm walls one {walls['one'][1]:.4f} s, {k} " + ", ".join(f"{x:.4f}" for x in walls[k])
+              + " s" + ("; held " + " ".join(f"{n} {v:.3e}" for n, v in held.items())
+                        + f"; launches {launches['multi_device_convert']}" if k == "split" else ""), flush=True)
+    report["launches"] = launches
+    return report
 
 
 def card_vs_cpu_steps() -> dict:

@@ -449,3 +449,65 @@ def test_profile_trace_names_kernels_2_and_3(cuda, tmp_path):
                     str(tmp_path / "prof"), "--check-numerics", *common])
     text = out["trace"].read_text()
     assert "gru_scan_kernel" in text and "gru_bwd_rec_kernel" in text
+
+
+def test_converter_split_over_one_card_twice_matches_one_device(cuda, tmp_path):
+    """Converter(devices=["cuda:0", "cuda:0"]) on the conversion workload
+    (flagship width, GL-8): units equal the single-device Converter's, or
+    differ only within a 1e-4 logit margin; PCM within 1 LSB; kernels 1, 2
+    and 4 launch on the split route."""
+    from zerospeech_tts_tpu_torch.convert import Converter
+    from zerospeech_tts_tpu_torch.dsp.wavio import load_wav
+    from zerospeech_tts_tpu_torch.export import load_export
+    from zerospeech_tts_tpu_torch.params import from_flax
+    from zerospeech_tts_tpu_torch.tools.workload import TARGETS, write_workload
+
+    _, acfg, speakers, _ = write_workload(tmp_path, seed=1)
+    b = load_export(tmp_path / "bundle")
+    enc_sd, dec_sd = from_flax({"enc": b.enc, "dec": b.dec})
+    wavs = [load_wav(p, acfg.sr) for p in sorted((tmp_path / "wavs").glob("*.wav"))]
+    ids = [speakers[t] for t in TARGETS]
+    out = {}
+    for k, devices in (("one", None), ("split", ["cuda:0", "cuda:0"])):
+        conv = Converter(b.hps, b.acfg, enc_sd, dec_sd, gl_iters=8, stats=b.stats, device=cuda, devices=devices)
+        before = (frontend.launches, gru.launches, griffin_lim.launches)
+        out[k] = conv.convert_wavs_multi(wavs, ids, tgt_names=list(TARGETS))
+        torch.cuda.synchronize()
+        after = (frontend.launches, gru.launches, griffin_lim.launches)
+        assert all(a > c for a, c in zip(after, before)), (k, before, after)
+    (u1, w1), (u2, w2) = out["one"], out["split"]
+    for i, (a, c) in enumerate(zip(u1, u2)):
+        assert a.shape == c.shape
+        if (a != c).any():  # only where the single device's own logit margin is tiny
+            one = Converter(b.hps, b.acfg, enc_sd, dec_sd, stats=b.stats, device=cuda)
+            s_mean, s_std = one._src_stats(1, None)
+            (_, _, arrays, to_dev), = one._pcm_chunks(one._trimmed([wavs[i]], True), s_mean, s_std)
+            x, tlens = to_dev(one.device, *arrays)
+            with torch.inference_mode():
+                lg = one.encoder(x, lengths=tlens)[0, : a.shape[0]].float().cpu().numpy()
+            assert (np.abs(lg[..., 0] - lg[..., 1])[a != c] < 1e-4).all()
+    for t1, t2 in zip(w1, w2):
+        for p, q in zip(t1, t2):
+            assert p.shape == q.shape and np.abs(p.astype(np.int32) - q.astype(np.int32)).max() <= 1
+
+
+def test_dp_parity_two_ranks_on_one_card_over_gloo(cuda):
+    """tools/dp_parity.py at world 2 on cuda:0 over gloo, tiny width, from
+    Adam moments that are not zero: every step meets dp_parity.failures'
+    bars (ranks bit-equal; parameters, gradients and pre-clip gradient
+    norms within 1e-5 relative of the single-process step; metrics within
+    1e-4), and with the planted fault (the gradient all_reduce undivided by
+    the world size) every step misses its gradient-norm bar."""
+    from zerospeech_tts_tpu_torch.config import Hps
+    from zerospeech_tts_tpu_torch.tools import dp_parity
+
+    h = Hps(speaker_norm=False, batch_size=8, seg_len=32, n_feat=64, emb_size=32, spk_emb_size=8, n_speakers=4,
+            bank_size=4, bank_channels=8, conv_channels=16, n_critic=1)
+    case = dp_parity.make_case(h, seed=3, device="cuda")
+    kw = dict(world=2, device="cuda", backend="gloo", local_ranks=[0, 0], timeout=300)
+    out = dp_parity.run(case, **kw)
+    assert out["world"] == 2 and out["backend"] == "gloo" and out["device"] == "cuda:0"
+    assert not dp_parity.failures(out["report"])
+    ctl = dp_parity.failures(dp_parity.run(case, control=True, **kw)["report"])
+    for name in out["report"]:
+        assert any(x.startswith(f"{name}: grad_norm_rel") for x in ctl), (name, ctl)

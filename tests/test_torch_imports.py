@@ -1,6 +1,6 @@
 """PyTorch port, hygiene: the package never imports JAX (or flax, optax,
-orbax, h5py, the JAX package), and chip_smoke.py refuses to run without a
-card."""
+orbax, h5py, the JAX package), its multi-device modules among the rest, and
+chip_smoke.py refuses to run without a card."""
 
 import os
 import subprocess
@@ -24,7 +24,7 @@ for name in names:
 bad = [m for m in ("jax", "flax", "optax", "orbax", "h5py", "zerospeech_tts_tpu") if m in sys.modules]
 need = {pkg.__name__ + "." + m for m in ("train.solver", "train.checkpoint", "train.logger",
         "data.corpus", "data.device_dataset", "models.classifier", "models.patch_discriminator",
-        "eval", "submission")}
+        "eval", "submission", "parallel", "parallel.distributed", "parallel.mesh", "tools.dp_parity")}
 print(len(names), sorted(need - set(names)) + bad)
 """
 

@@ -5,7 +5,8 @@
         --merge-shards SHARD_DIR ...]
     python -m zerospeech_tts_tpu_torch train1 -dataset_path DS -index_path IDX -ckpt_dir CK \
         [--device-data [--data-bf16]] [--feat lin|mel] [--iters-override N] \
-        [--train-batch-size B] [--no-pairs] [--fresh] [--load_model STEP|DIR] [--log_dir L]
+        [--train-batch-size B] [--no-pairs] [--fresh] [--load_model STEP|DIR] [--log_dir L] \
+        [--mesh data=D]   # under torchrun --nproc-per-node D
     python -m zerospeech_tts_tpu_torch train2 -dataset_path DS -index_path IDX -ckpt_dir CK \
         [--device-data [--data-bf16]] [--feat lin|mel] [--targets V001 V002] [--iters-override N]
     python -m zerospeech_tts_tpu_torch export -dataset_path DS -ckpt_dir CK --out B \
@@ -39,7 +40,18 @@ Every verb that runs a model takes ``--device``: ``cuda`` (the default)
 runs the hand-written kernels and exits with an error when no CUDA device
 is visible; ``cpu`` runs their plain versions. Every verb but
 ``submission`` takes ``--profile DIR``, ``--check-numerics`` and
-``--matmul-precision`` (see their help). ``submission`` and ``eval
+``--matmul-precision`` (see their help).
+
+``--mesh data=D`` (train1, train2, convert, convert-single, serve; the JAX
+``--mesh``, data axis only): training runs data-parallel over D processes,
+one a card, launched by ``torchrun --nproc-per-node D -m
+zerospeech_tts_tpu_torch train1 ... --mesh data=D`` (each process binds
+``cuda:LOCAL_RANK``; NCCL on ``cuda``, gloo on ``cpu``; rank 0 prints,
+logs and saves; ``--device-data`` shards the arena over the ranks, the
+loader gives each rank its rows of every batch). Conversion splits every
+dispatch's rows over cards 0..D-1 of its one process; a multi-process
+launch of a conversion verb is refused. ``--mesh model=M`` (tensor
+parallelism) is not ported. ``submission`` and ``eval
 --units/--abx`` read files only. ``--wire-uint8`` and ``--wire-mulaw`` are
 refused: they are on ROADMAP.md's "do not port" list.
 """
@@ -49,6 +61,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shlex
 import sys
 import time
 from contextlib import contextmanager
@@ -56,6 +69,7 @@ from pathlib import Path
 
 import torch
 
+from zerospeech_tts_tpu_torch import parallel
 from zerospeech_tts_tpu_torch.config import DEFAULT_HPS_PATH, load_configs
 
 
@@ -98,8 +112,9 @@ def apply_matmul_precision(choice: str | None) -> None:
 @contextmanager
 def maybe_profile(args, what: str):
     """A torch.profiler trace of the body into --profile DIR (as JAX's
-    ``_MaybeProfile``); yields the trace's path, or None without the flag."""
-    if not getattr(args, "profile", None):
+    ``_MaybeProfile``); yields the trace's path, or None without the flag
+    (or on a data-parallel rank above 0: rank 0 alone writes files)."""
+    if not getattr(args, "profile", None) or not parallel.is_primary():
         yield None
         return
     from torch.profiler import ProfilerActivity, profile
@@ -133,6 +148,13 @@ def dtype_flags(p) -> None:
                         "the frontend and Griffin-Lim stay f32); may flip borderline units")
     p.add_argument("--enc-f32", action="store_true",
                    help="keep the encoder in float32 under --bf16: the exact config's units")
+
+
+def mesh_flag(p) -> None:
+    p.add_argument("--mesh", default=None, metavar="data=D",
+                   help="data-parallel over D cards: training under torchrun --nproc-per-node D (one "
+                        "process a card), conversion over cards 0..D-1 of this process "
+                        "(model=M, tensor parallelism, is not ported)")
 
 
 def wire_flags(p) -> None:
@@ -196,6 +218,7 @@ def build_parser() -> argparse.ArgumentParser:
         p.add_argument("--data-bf16", action="store_true",
                        help="with --device-data: hold the arena in bfloat16 (halves its bytes; "
                             "batches are f32)")
+        mesh_flag(p)
 
     p = sub.add_parser("export", help="inference bundle (enc + dec, speakers, stats, hps)")
     common(p)
@@ -245,6 +268,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "or the rows*frames the dispatches execute (tail rounding, "
                         "--frame-budget caps)")
     p.add_argument("--device", default="cuda", help="cuda (kernels) or cpu (plain PyTorch)")
+    mesh_flag(p)
     global_flags(p)
 
     p = sub.add_parser("convert-single", help="single-utterance VC (ref --test_single)")
@@ -257,6 +281,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="features the model was trained on (default: the bundle's, else lin)")
     dtype_flags(p)
     p.add_argument("--device", default="cuda", help="cuda (kernels) or cpu (plain PyTorch)")
+    mesh_flag(p)
     global_flags(p)
 
     p = sub.add_parser("serve", help="HTTP conversion service: a warm model and request "
@@ -284,6 +309,7 @@ def build_parser() -> argparse.ArgumentParser:
     dtype_flags(p)
     wire_flags(p)
     p.add_argument("--device", default="cuda", help="cuda (kernels) or cpu (plain PyTorch)")
+    mesh_flag(p)
     global_flags(p)
 
     p = sub.add_parser("eval", help="challenge metrics: unit bitrate, ABX, recon L1, stability")
@@ -446,32 +472,59 @@ def _restore_source(args, hps, ckpt):
     return CheckpointManager(v, hps=hps, read_only=True), None
 
 
+def _say(*a) -> None:
+    """print, on rank 0 of a data-parallel run (and in any other run)."""
+    if parallel.is_primary():
+        print(*a, flush=True)
+
+
+def _join_group(args) -> tuple[torch.device, object]:
+    """(this process's device, process group or None) of a training verb:
+    joins the group torchrun's variables describe (NCCL on cuda, gloo on
+    cpu), after checking that ``--mesh data=D`` names the launched world."""
+    dev = _device(args)
+    data, launched = parallel.parse_mesh(args.mesh), parallel.distributed.launched_world()
+    if data != launched:
+        cmd = " ".join(shlex.quote(a) for a in args.argv)
+        if args.mesh is None:
+            cmd += f" --mesh data={launched}"
+        sys.exit(f"--mesh data={data} but WORLD_SIZE is {launched}: data-parallel training runs one "
+                 f"process a card; launch it as\n  torchrun --nproc-per-node {max(data, launched)} -m "
+                 f"zerospeech_tts_tpu_torch {cmd}")
+    if not parallel.initialize(device=dev):
+        return dev, None
+    return parallel.local_device(dev), torch.distributed.group.WORLD
+
+
 def _make_training(args):
     """(hps, solver, data, state, ckpt, logger, set-up seconds): data is
-    the host SegmentLoader over -index_path, or with --device-data the
-    arena on the device."""
-    from zerospeech_tts_tpu_torch.data.device_dataset import DeviceDataset
+    the host SegmentLoader over -index_path (this rank's rows of every
+    batch), or with --device-data the arena on the device (with --mesh,
+    this rank's shard of it)."""
+    from zerospeech_tts_tpu_torch.data.device_dataset import DeviceDataset, ShardedDeviceDataset
     from zerospeech_tts_tpu_torch.data.loader import SegmentLoader
     from zerospeech_tts_tpu_torch.train import CheckpointManager, Logger, Solver, init_state
 
-    dev = _device(args)
+    dev, group = _join_group(args)
+    rank, world = parallel.rank(), parallel.world()
     t0 = time.time()
     hps, _ = load_configs(args.hps)
     if args.train_batch_size:
         hps = hps.replace(batch_size=args.train_batch_size)
     if args.device_data:
-        data = DeviceDataset.from_corpus(args.dataset_path, hps, target_speakers=args.targets,
-                                         device=dev, feat=args.feat,
-                                         dtype=torch.bfloat16 if args.data_bf16 else torch.float32)
+        kw = dict(target_speakers=args.targets, device=dev, feat=args.feat,
+                  dtype=torch.bfloat16 if args.data_bf16 else torch.float32)
+        data = (ShardedDeviceDataset.from_corpus(args.dataset_path, hps, rank, world, **kw) if args.mesh
+                else DeviceDataset.from_corpus(args.dataset_path, hps, **kw))
     else:  # stage 1 takes the same-utterance pair; stage 2 does not need it
         data = SegmentLoader(args.dataset_path, args.index_path, hps, feat=args.feat,
                              target_speakers=args.targets, device=dev, seed=hps.seed,
-                             pairs=args.cmd == "train1" and not args.no_pairs)
-    state = init_state(hps, device=dev)
+                             pairs=args.cmd == "train1" and not args.no_pairs, rank=rank, world=world)
+    state = init_state(hps, device=dev, rank=rank)
     ckpt = CheckpointManager(args.ckpt_dir, hps=hps)
     logger = Logger(args.log_dir or Path(args.ckpt_dir) / "logs")
     _sync(dev)
-    solver = Solver(hps, check_numerics=args.check_numerics)
+    solver = Solver(hps, check_numerics=args.check_numerics, group=group)
     return hps, solver, data, state, ckpt, logger, time.time() - t0
 
 
@@ -493,7 +546,7 @@ def _run_phases(solver, state, data, phases, logger, ckpt, pairs=True) -> dict:
     for mode, iters in phases:
         if iters == 0:
             continue
-        print(f"== phase {mode}: {iters} iters", flush=True)
+        _say(f"== phase {mode}: {iters} iters")
         step0 = state.step
         _sync(dev)
         t0 = time.time()
@@ -502,12 +555,18 @@ def _run_phases(solver, state, data, phases, logger, ckpt, pairs=True) -> dict:
         dt = time.time() - t0
         out[mode] = {"steps": state.step - step0, "seconds": dt, "steps_per_s": (state.step - step0) / dt,
                      "last": {k: float(v) for k, v in last.items()}}
-        print(f"   {mode}: {state.step - step0} steps in {dt:.2f}s "
-              f"({out[mode]['steps_per_s']:.3f} steps/s)", flush=True)
+        _say(f"   {mode}: {state.step - step0} steps in {dt:.2f}s ({out[mode]['steps_per_s']:.3f} steps/s)")
     return out
 
 
 def cmd_train1(args):
+    try:
+        return _train1(args)
+    finally:
+        parallel.destroy()
+
+
+def _train1(args):
     hps, solver, data, state, ckpt, logger, setup_s = _make_training(args)
     ov = args.iters_override
     phases = [("pretrain_AE", ov or hps.enc_pretrain_iters),
@@ -521,7 +580,7 @@ def cmd_train1(args):
     if explicit or (not args.fresh and ckpt.latest_step() is not None):
         src.restore(state, src_step)
         resumed = state.step
-        print(f"resumed from step {state.step}")
+        _say(f"resumed from step {state.step}")
         if hasattr(data, "reseed"):  # fresh batches, not a replay of the consumed ones
             data.reseed(state.step)
         done, trimmed = state.step, []  # skip the completed part of the schedule
@@ -530,18 +589,25 @@ def cmd_train1(args):
             done = max(0, done - iters)
         phases = trimmed
         if all(n == 0 for _, n in phases):
-            print("stage-1 schedule already complete; nothing to do")
-    print(f"set-up {setup_s:.2f}s (data, model init)")
+            _say("stage-1 schedule already complete; nothing to do")
+    _say(f"set-up {setup_s:.2f}s (data, model init)")
     with _batches(data) as batches, maybe_profile(args, "train1") as trace:
         out = _run_phases(solver, state, batches, phases, logger, ckpt, pairs=not args.no_pairs)
     ckpt.save(state)
     logger.close()
-    print(f"stage-1 done at step {state.step}; ckpt -> {args.ckpt_dir}")
+    _say(f"stage-1 done at step {state.step}; ckpt -> {args.ckpt_dir}")
     return {"phases": out, "setup_s": setup_s, "resumed_from": resumed, "step": state.step,
             "state": state, "trace": trace}
 
 
 def cmd_train2(args):
+    try:
+        return _train2(args)
+    finally:
+        parallel.destroy()
+
+
+def _train2(args):
     hps, solver, data, state, ckpt, logger, setup_s = _make_training(args)
     src, src_step = _restore_source(args, hps, ckpt)
     if src.latest_step() is None:
@@ -549,13 +615,13 @@ def cmd_train2(args):
     src.restore(state, src_step)
     if hasattr(data, "reseed"):
         data.reseed(state.step)
-    print(f"stage-2 from step {state.step}; set-up {setup_s:.2f}s (data, model init)")
+    _say(f"stage-2 from step {state.step}; set-up {setup_s:.2f}s (data, model init)")
     with _batches(data) as batches, maybe_profile(args, "train2") as trace:
         out = _run_phases(solver, state, batches, [("patchGAN", args.iters_override or hps.patch_iters)],
                           logger, ckpt)
     ckpt.save(state)
     logger.close()
-    print(f"stage-2 done at step {state.step}")
+    _say(f"stage-2 done at step {state.step}")
     return {"phases": out, "setup_s": setup_s, "step": state.step, "state": state, "trace": trace}
 
 
@@ -612,6 +678,17 @@ def _load_converter(args):
 
     _refuse_wires(args)
     dev = _device(args)
+    launched = parallel.distributed.launched_world()
+    if launched > 1:
+        sys.exit(f"{args.cmd}: launched as {launched} processes (WORLD_SIZE): conversion runs in one "
+                 "process over its local cards (--mesh data=D); multi-process (multi-host) conversion "
+                 "is a later slice (ROADMAP.md)")
+    devices = None
+    if args.mesh:
+        try:
+            devices = parallel.conversion_devices(dev, parallel.parse_mesh(args.mesh))
+        except ValueError as e:
+            sys.exit(f"--mesh {args.mesh}: {e}")
     feat = getattr(args, "feat", None)
     if getattr(args, "from_export", None):
         from zerospeech_tts_tpu_torch.export import load_export
@@ -646,6 +723,7 @@ def _load_converter(args):
         compute_dtype=torch.bfloat16 if args.bf16 else torch.float32,
         encoder_dtype=torch.float32 if args.enc_f32 else None,
         check_numerics=getattr(args, "check_numerics", False),
+        devices=devices,
     )
     return conv, speakers
 
@@ -822,6 +900,7 @@ def cmd_submission(args):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    args.argv = list(sys.argv[1:] if argv is None else argv)
     apply_matmul_precision(getattr(args, "matmul_precision", None))
     return {"preprocess": cmd_preprocess, "train1": cmd_train1, "train2": cmd_train2,
             "export": cmd_export, "convert": cmd_convert,

@@ -27,6 +27,14 @@ package's units-only programs). Buckets are uniform (``bucket_frames``) or
 fitted to the corpus lengths (``fit_buckets``, ``plan_buckets``), and a
 ``frame_budget`` lets short buckets take more rows a dispatch.
 
+Several devices (``devices=[...]``, the JAX Converter's ``mesh`` over the
+``data`` axis): the encoder and decoder are copied to each device, batch
+rows are rounded up to a multiple of the device count, the bucket plan
+stays the global one, and every dispatch's rows are split into one
+contiguous slice a device, each launched on its device (frontend too)
+before any is read back; results come back in row order, so every entry
+point returns what the single-device Converter returns.
+
 Not ported (ROADMAP "do not port"): the uint8/mu-law wires and
 ``--dispatch-cost-frames``.
 """
@@ -222,7 +230,13 @@ class Converter:
     keeps the flat batch_size cap.
 
     ``check_numerics``: raise FloatingPointError at the first non-finite
-    encoder logit of a true frame (one wait for the device a dispatch)."""
+    encoder logit of a true frame (one wait for the device a dispatch).
+
+    ``devices``: local devices to split each dispatch's rows over (module
+    docstring); None means ``[device]``. A device may repeat (the split on
+    one card, or on the CPU); the model is copied to each distinct device
+    here, so later edits of ``encoder``/``decoder`` (``devices[0]``'s)
+    reach that device only."""
 
     def __init__(
         self,
@@ -240,6 +254,7 @@ class Converter:
         compute_dtype="float32",  # the decoder's dtype: float32 | bfloat16
         encoder_dtype=None,  # the encoder's: None -> compute_dtype
         check_numerics: bool = False,
+        devices=None,  # split every dispatch's rows over these devices
     ):
         assert bucket_frames % hps.downsample == 0
         if feat not in ("lin", "mel"):
@@ -247,13 +262,15 @@ class Converter:
         self.feat = feat
         self.compute_dtype = _as_dtype(compute_dtype)
         self.encoder_dtype = _as_dtype(encoder_dtype) if encoder_dtype else self.compute_dtype
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(f"device {self.device}: no CUDA device is visible")
+        self.devices = [torch.device(d) for d in (devices or [device])]
+        self.device = self.devices[0]
+        if any(d.type == "cuda" for d in self.devices) and not torch.cuda.is_available():
+            raise RuntimeError(f"devices {self.devices}: no CUDA device is visible")
         self.hps, self.acfg, self.stats = hps, acfg, stats
         self.check_numerics = check_numerics
         self.gl_iters = gl_iters if gl_iters is not None else acfg.gl_iters
-        self.batch_size = batch_size
+        n_dev = len(self.devices)
+        self.batch_size = -(-batch_size // n_dev) * n_dev  # whole rows on every device
         self.bucket_frames = bucket_frames
         self.frame_budget = frame_budget
         self.bucket_edges: list[int] | None = None  # set by fit_buckets()
@@ -266,6 +283,13 @@ class Converter:
         # the conversion's encoder: the f32 one, or a copy cast to encoder_dtype
         self.conv_encoder = (self.encoder if self.encoder_dtype == torch.float32
                              else copy.deepcopy(self.encoder).to(self.encoder_dtype))
+        # device -> (encoder, conversion encoder, decoder) on it
+        self._models = {self.device: (self.encoder, self.conv_encoder, self.decoder)}
+        for d in self.devices[1:]:
+            if d not in self._models:
+                enc = copy.deepcopy(self.encoder).to(d)
+                conv_enc = enc if self.conv_encoder is self.encoder else copy.deepcopy(self.conv_encoder).to(d)
+                self._models[d] = (enc, conv_enc, copy.deepcopy(self.decoder).to(d))
 
     # ------------------------------------------------------------- buckets
 
@@ -325,8 +349,16 @@ class Converter:
 
     def _chunk_batch(self, k: int, cap: int | None = None) -> int:
         """Batch rows for a chunk of ``k`` utterances: the smallest allowed
-        row count >= k (_round_rows), capped at the bucket's cap."""
-        return _round_rows(k, cap or self.batch_size)
+        row count >= k (_round_rows), capped at the bucket's cap, rounded up
+        to a multiple of the device count."""
+        n_dev = len(self.devices)
+        return -(-_round_rows(k, cap or self.batch_size) // n_dev) * n_dev
+
+    def _slices(self, rows: int):
+        """(device, row slice) of each device's contiguous share of a
+        ``rows``-row dispatch."""
+        b = rows // len(self.devices)
+        return [(d, slice(i * b, (i + 1) * b)) for i, d in enumerate(self.devices)]
 
     def _pad_frames(self, feats: np.ndarray) -> np.ndarray:
         t = feats.shape[0]
@@ -350,14 +382,16 @@ class Converter:
 
     # ---------------------------------------------------------------- core
 
-    def _convert_core(self, x, spk, tgt_mean, tgt_std, tlens):
-        """Normalised features x [B, T, F] -> (units [B, T/ds, emb] int32,
-        PCM16 [n_tgt, B, (T-1)*hop] int16). ``tlens`` ([B] true frame
-        counts) drives the length-masked encoder/decoder so bucket padding
-        never changes the true frames' units or audio."""
+    def _convert_core(self, dev, x, spk, tgt_mean, tgt_std, tlens):
+        """Normalised features x [B, T, F] on ``dev`` (one of the devices)
+        -> (units [B, T/ds, emb] int32, PCM16 [n_tgt, B, (T-1)*hop] int16)
+        there. ``tlens`` ([B] true frame counts) drives the length-masked
+        encoder/decoder so bucket padding never changes the true frames'
+        units or audio."""
         hps, acfg = self.hps, self.acfg
+        _, conv_encoder, decoder = self._models[dev]
         zlens = (tlens + hps.downsample - 1) // hps.downsample
-        logits = self.conv_encoder(x, lengths=tlens).float()
+        logits = conv_encoder(x, lengths=tlens).float()
         self._check_logits(logits, tlens)
         units = unit_bits(logits, hps.enc_mode)
         z = (
@@ -371,7 +405,7 @@ class Converter:
         n_tgt, bsz = spk.shape
         z_all = z[:, None].expand(bsz, n_tgt, *z.shape[1:]).reshape(bsz * n_tgt, *z.shape[1:])
         spk_flat = spk.T.reshape(-1)
-        xh = self.decoder(z_all, spk_flat, lengths=zlens.repeat_interleave(n_tgt)).float()
+        xh = decoder(z_all, spk_flat, lengths=zlens.repeat_interleave(n_tgt)).float()
         mean_all = tgt_mean[None].expand(bsz, -1, -1).reshape(bsz * n_tgt, 1, -1)
         std_all = tgt_std[None].expand(bsz, -1, -1).reshape(bsz * n_tgt, 1, -1)
         xh = torch.clamp(xh * std_all + mean_all, 0.0, 1.0)
@@ -380,11 +414,11 @@ class Converter:
         pcm = torch.clamp(wav * 32767.0, -32768.0, 32767.0).to(torch.int16)
         return units, pcm.reshape(bsz, n_tgt, -1).transpose(0, 1)
 
-    def _encode(self, x, tlens):
-        """Normalised features [B, T, F] -> units [B, T/ds, emb] int32, from
-        the f32 encoder in every configuration (the JAX package's units-only
-        programs run the uncast parameters)."""
-        logits = self.encoder(x, lengths=tlens)
+    def _encode(self, dev, x, tlens):
+        """Normalised features [B, T, F] on ``dev`` -> units [B, T/ds, emb]
+        int32, from the f32 encoder in every configuration (the JAX
+        package's units-only programs run the uncast parameters)."""
+        logits = self._models[dev][0](x, lengths=tlens)
         self._check_logits(logits, tlens)
         return unit_bits(logits, self.hps.enc_mode)
 
@@ -420,19 +454,31 @@ class Converter:
         return self.stats.arrays_for(src_speakers or ["__global__"] * n)
 
     def _tgt_stats(self, spk_ids, tgt_names):
-        """Target denorm [n_tgt, F] mean/std on the device."""
+        """Target denorm [n_tgt, F] mean/std on each device."""
         if self.stats is None:
             m = np.zeros((len(spk_ids), self.hps.n_feat), np.float32)
             s = np.ones((len(spk_ids), self.hps.n_feat), np.float32)
         else:
             m, s = self.stats.arrays_for(tgt_names)
-        return torch.from_numpy(m).to(self.device), torch.from_numpy(s).to(self.device)
+        return {d: (torch.from_numpy(m).to(d), torch.from_numpy(s).to(d)) for d in self._models}
+
+    def _pcm_features(self, dev, pcm, sm, ss, sl):
+        """Host rows of a PCM dispatch -> (features, true frame counts) on
+        ``dev`` (the frontend runs there)."""
+        return self._wav_features(*(torch.from_numpy(a).to(dev) for a in (pcm, sm, ss, sl)))
+
+    def _wire_features(self, dev, x, tl):
+        """Host rows of a feature dispatch -> (features, true frame counts)
+        on ``dev``; features cross in bf16 (the JAX package's feature
+        wire)."""
+        return torch.from_numpy(x).to(torch.bfloat16).to(dev).to(torch.float32), torch.from_numpy(tl).to(dev)
 
     def _pcm_chunks(self, wavs, s_mean, s_std):
         """Per dispatch of the trimmed float ``wavs``: (utterance indices,
-        batch rows, device features [rows, tb, F], true frame counts).
-        Dummy rows are silent and act full-length."""
-        acfg, hps, dev = self.acfg, self.hps, self.device
+        batch rows, host arrays [rows, ...], the function that takes a
+        device and rows of them to device features [rows, tb, F] and true
+        frame counts). Dummy rows are silent and act full-length."""
+        acfg, hps = self.acfg, self.hps
         frames = [dsp_audio.n_frames_for(len(w), acfg) for w in wavs]
         for tb, chunk, bs_c in self._dispatches(frames, [len(w) for w in wavs]):
             n_samp = tb * acfg.hop_length - 1  # longest signal with tb frames
@@ -445,17 +491,12 @@ class Converter:
                 pcm[j, : len(w)] = w
                 sm[j], ss[j] = s_mean[i], s_std[i]
                 sl[j] = len(w)
-            x, tlens = self._wav_features(
-                torch.from_numpy(pcm).to(dev), torch.from_numpy(sm).to(dev),
-                torch.from_numpy(ss).to(dev), torch.from_numpy(sl).to(dev),
-            )
-            yield chunk, bs_c, x, tlens
+            yield chunk, bs_c, (pcm, sm, ss, sl), self._pcm_features
 
     def _feature_chunks(self, feats_list):
-        """Per dispatch of normalised [T_i, F] features: (utterance indices,
-        batch rows, device features [rows, tb, F], true frame counts).
-        Features cross to the device in bf16 (the JAX package's feature
-        wire); dummy rows are zeros at full length."""
+        """Per dispatch of normalised [T_i, F] features: as _pcm_chunks,
+        the features crossing in bf16; dummy rows are zeros at full
+        length."""
         frames = [f.shape[0] for f in feats_list]
         for tb, chunk, bs_c in self._dispatches(frames, frames):
             x = np.zeros((bs_c, tb, self.hps.n_feat), np.float32)
@@ -463,8 +504,20 @@ class Converter:
             for j, i in enumerate(chunk):
                 x[j] = self._pad_frames(feats_list[i])
                 tl[j] = frames[i]
-            x_d = torch.from_numpy(x).to(torch.bfloat16).to(self.device).to(torch.float32)
-            yield chunk, bs_c, x_d, torch.from_numpy(tl).to(self.device)
+            yield chunk, bs_c, (x, tl), self._wire_features
+
+    def _launch(self, chunks, core):
+        """For each dispatch, ``core(dev, x, tlens)`` on every device's
+        slice of its rows, all launched before any is read back: [(utterance
+        indices, [each slice's outputs])]."""
+        inflight = []
+        for chunk, bs_c, arrays, to_device in chunks:
+            parts = []
+            for dev, rows in self._slices(bs_c):
+                x, tlens = to_device(dev, *(a[rows] for a in arrays))
+                parts.append(core(dev, x, tlens))
+            inflight.append((chunk, parts))
+        return inflight
 
     def _normalized(self, feats_list, src_speakers):
         """Features z-scored with each source speaker's statistics."""
@@ -482,31 +535,38 @@ class Converter:
                 "conversion would denormalize with the WRONG (global) statistics. Pass "
                 "per-target names, or build the Converter with stats=None to opt out."
             )
-        t_mean, t_std = self._tgt_stats(spk_ids, tgt_names)
+        t_stats = self._tgt_stats(spk_ids, tgt_names)
         spk_arr = np.asarray(spk_ids, np.int64)[:, None]
-        inflight = []
-        for chunk, bs_c, x, tlens in chunks:
-            spk = torch.from_numpy(np.tile(spk_arr, (1, bs_c))).to(self.device)
-            inflight.append((chunk, *self._convert_core(x, spk, t_mean, t_std, tlens)))
+
+        def core(dev, x, tlens):
+            spk = torch.from_numpy(np.tile(spk_arr, (1, x.shape[0]))).to(dev)
+            return self._convert_core(dev, x, spk, *t_stats[dev], tlens)
+
+        inflight = self._launch(chunks, core)
         ds, hop = self.hps.downsample, self.acfg.hop_length
         units_out: list = [None] * n
         wavs_out: list[list] = [[None] * n for _ in spk_ids]
-        for chunk, units_d, pcm_d in inflight:
-            units, pcm = units_d.cpu().numpy(), pcm_d.cpu().numpy()  # pcm: [n_tgt, B, n]
+        for chunk, parts in inflight:  # row j is row j % b of slice j // b: no concatenating copy
+            units = [u.cpu().numpy() for u, _ in parts]
+            pcm = [p.cpu().numpy() for _, p in parts]  # each [n_tgt, b, n]
+            b = units[0].shape[0]
             for j, i in enumerate(chunk):
-                units_out[i] = units[j][: -(-t_true[i] // ds)].astype(np.int32)
+                q, r = divmod(j, b)
+                units_out[i] = units[q][r][: -(-t_true[i] // ds)].astype(np.int32)
                 for k in range(len(spk_ids)):
-                    wavs_out[k][i] = pcm[k, j][: max(t_true[i] - 1, 1) * hop]
+                    wavs_out[k][i] = pcm[q][k, r][: max(t_true[i] - 1, 1) * hop]
         return units_out, wavs_out
 
     def _run_encoding(self, chunks, n, t_true):
-        inflight = [(chunk, self._encode(x, tlens)) for chunk, _, x, tlens in chunks]
+        inflight = self._launch(chunks, self._encode)
         ds = self.hps.downsample
         out: list = [None] * n
-        for chunk, units_d in inflight:
-            units = units_d.cpu().numpy()
+        for chunk, parts in inflight:
+            units = [u.cpu().numpy() for u in parts]
+            b = units[0].shape[0]
             for j, i in enumerate(chunk):
-                out[i] = units[j][: -(-t_true[i] // ds)].astype(np.int32)
+                q, r = divmod(j, b)
+                out[i] = units[q][r][: -(-t_true[i] // ds)].astype(np.int32)
         return out
 
     def _trimmed(self, wavs, trim: bool):

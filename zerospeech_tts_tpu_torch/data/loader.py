@@ -18,6 +18,12 @@ stacked into pinned host tensors and copied to
 ``prefetch`` batches ahead and hands any exception it meets to the
 consumer. Speaker ids and ``pair_dt`` are int64, as the training step takes
 them.
+
+Data-parallel (``rank``/``world``): every rank makes the global batch's
+index draws, in the same order from the same seed, and gathers and copies
+only its rows (``parallel.mesh.batch_slice``, the rows JAX's ``P("data")``
+puts on its device), so the ranks' batches together are the
+single-process batch, row for row.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from zerospeech_tts_tpu_torch.config import Hps
 from zerospeech_tts_tpu_torch.data.corpus import load_speaker_map, load_split
 from zerospeech_tts_tpu_torch.data.device_dataset import check_speaker_ids
 from zerospeech_tts_tpu_torch.data.speaker_norm import SpeakerStats
+from zerospeech_tts_tpu_torch.parallel.mesh import batch_slice
 
 
 class SegmentLoader:
@@ -51,8 +58,11 @@ class SegmentLoader:
         cache_size: int = 1024,
         prefetch: int = 2,
         pairs: bool = False,  # also yield the same-utterance pair segment x2
+        rank: int = 0,
+        world: int = 1,
     ):
         self.pairs = pairs
+        self.rows = batch_slice(rank, world, hps.batch_size)  # this rank's rows of each batch
         self.hps = hps
         self.feat = feat
         self.split = split
@@ -140,8 +150,8 @@ class SegmentLoader:
         h = self.hps
         idx = self.rng.integers(0, len(self.entries), h.batch_size)
         ridx = self.rng.integers(0, len(self._real_entries), h.batch_size)
-        picked = [self.entries[i] for i in idx]
-        reals = [self._real_entries[i] for i in ridx]
+        picked = [self.entries[i] for i in idx[self.rows]]
+        reals = [self._real_entries[i] for i in ridx[self.rows]]
         batch = {
             "x": self._stack([self._segment(e) for e in picked]),
             "spk": self._ids([self.speakers[e["speaker"]] for e in picked]),

@@ -19,6 +19,7 @@ on a machine with no ``nvcc``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -106,6 +107,15 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
 
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def on_card(t: torch.Tensor):
+    """A context that makes ``t``'s card the current one for a C launch
+    (the C code launches on the current card): none when it already is,
+    as on every one-card path, so those pay no device switch a launch."""
+    if t.device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(t.device)
 
 
 def require(t: torch.Tensor, what: str, shape: tuple, dtype=torch.float32, device=None) -> None:

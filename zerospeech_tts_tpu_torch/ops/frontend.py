@@ -111,12 +111,13 @@ def fused_frontend(ypad: torch.Tensor, cfg: AudioConfig, n_frames: int):
     mag = torch.empty(b, n_frames, cfg.n_freq, device=ypad.device)
     lib = build.load("frontend")
     fn = build.bind(lib, "zs_frontend", 10, 8, 2)
-    err = fn(
-        ypad.data_ptr(), win_w.data_ptr(), tw.data_ptr(), w32.data_ptr(), ca_t.data_ptr(), sa_t.data_ptr(),
-        melw.data_ptr(), bands.data_ptr(), mel.data_ptr(), mag.data_ptr(),
-        b, p, n_frames, lg, cfg.n_mels, melw.numel(), cfg.win_length, cfg.hop_length,
-        cfg.ref_db, cfg.max_db, build.stream_of(ypad),
-    )
+    with build.on_card(ypad):
+        err = fn(
+            ypad.data_ptr(), win_w.data_ptr(), tw.data_ptr(), w32.data_ptr(), ca_t.data_ptr(), sa_t.data_ptr(),
+            melw.data_ptr(), bands.data_ptr(), mel.data_ptr(), mag.data_ptr(),
+            b, p, n_frames, lg, cfg.n_mels, melw.numel(), cfg.win_length, cfg.hop_length,
+            cfg.ref_db, cfg.max_db, build.stream_of(ypad),
+        )
     build.check(lib, err, "frontend kernel")
     global launches
     launches += 1

@@ -149,11 +149,12 @@ def griffin_lim(mag: torch.Tensor, cfg: AudioConfig, n_iters: int | None = None)
     u, va, vb, out = (torch.empty(b, n_sig, device=mag.device) for _ in range(4))
     lib = build.load("griffin_lim")
     fn = build.bind(lib, "zs_griffin_lim", 9, 6, 1)
-    err = fn(
-        mag.data_ptr(), win_w.data_ptr(), tw.data_ptr(), w32.data_ptr(), wss_inv.data_ptr(), u.data_ptr(),
-        va.data_ptr(), vb.data_ptr(), out.data_ptr(), b, t, lg, win, hop, n_iters,
-        cfg.gl_momentum, build.stream_of(mag),
-    )
+    with build.on_card(mag):
+        err = fn(
+            mag.data_ptr(), win_w.data_ptr(), tw.data_ptr(), w32.data_ptr(), wss_inv.data_ptr(), u.data_ptr(),
+            va.data_ptr(), vb.data_ptr(), out.data_ptr(), b, t, lg, win, hop, n_iters,
+            cfg.gl_momentum, build.stream_of(mag),
+        )
     build.check(lib, err, "griffin-lim kernel")
     global launches
     launches += 1

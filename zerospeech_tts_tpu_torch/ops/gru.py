@@ -150,8 +150,9 @@ def gru_scan(xw, wh, bh, lengths=None, *, reverse: bool = False):
         state = torch.empty(2, b, h, device=xw.device)  # scratch: the f32 state a step hands on
         ptrs.append(state.data_ptr())
     fn = build.bind(lib, "zs_gru_scan" if dt == torch.float32 else "zs_gru_scan_bf16", len(ptrs) + 2, 4)
-    err = fn(*ptrs, bar.data_ptr(), ctypes.addressof(n_launches), b, t, h, int(reverse),
-             build.stream_of(xw))
+    with build.on_card(xw):
+        err = fn(*ptrs, bar.data_ptr(), ctypes.addressof(n_launches), b, t, h, int(reverse),
+                 build.stream_of(xw))
     build.check(lib, err, "gru kernel")
     global launches, bf16_launches
     if dt == torch.float32:
@@ -244,12 +245,13 @@ def gru_bwd(xw, wh, bh, ys, dys, *, reverse: bool = False):
     bar = torch.empty(2 * n_sm, dtype=torch.int32, device=dev)  # scratch: group barriers
     lib = build.load("gru_bwd")
     fn = build.bind(lib, "zs_gru_bwd", 13, 4)
-    err = fn(
-        xw.data_ptr(), wh.data_ptr(), bh.data_ptr(), ys.data_ptr(), dys.data_ptr(),
-        dxw.data_ptr(), dwh.data_ptr(), dbh.data_ptr(), hw.data_ptr(), dhw.data_ptr(),
-        carry[0].data_ptr(), carry[1].data_ptr(), bar.data_ptr(), b, t, h, int(reverse),
-        build.stream_of(xw),
-    )
+    with build.on_card(xw):
+        err = fn(
+            xw.data_ptr(), wh.data_ptr(), bh.data_ptr(), ys.data_ptr(), dys.data_ptr(),
+            dxw.data_ptr(), dwh.data_ptr(), dbh.data_ptr(), hw.data_ptr(), dhw.data_ptr(),
+            carry[0].data_ptr(), carry[1].data_ptr(), bar.data_ptr(), b, t, h, int(reverse),
+            build.stream_of(xw),
+        )
     build.check(lib, err, "gru_bwd kernel")
     global bwd_launches
     bwd_launches += 1

@@ -8,6 +8,14 @@ the JAX manager's semantics: retention of the newest ``max_to_keep``
 steps, ``latest_step``/``all_steps``/``restore(step)``, ``read_only``
 sources, a saved step overwritten in place, and ``hps.json`` checked on
 open against the data-space hps a checkpoint is only valid for.
+
+Data-parallel runs: rank 0 alone creates the directory and writes
+``hps.json`` and the step files, and every rank waits at a barrier after
+each save (and after the directory is set up), so no rank reads a step
+before it is whole. Every rank restores the same file, as the JAX
+package's restore does. The generator saved is rank 0's; on restore the
+other ranks re-derive theirs from (seed, rank, restored step)
+(``TrainState.reseed``).
 """
 
 from __future__ import annotations
@@ -19,6 +27,8 @@ import re
 from pathlib import Path
 
 import torch
+
+from zerospeech_tts_tpu_torch.parallel.distributed import barrier, is_primary
 
 _STEP_RE = re.compile(r"^step_(\d+)\.pt$")
 
@@ -36,10 +46,14 @@ class CheckpointManager:
         if read_only:
             if not self.path.is_dir():
                 raise FileNotFoundError(f"checkpoint dir {self.path} does not exist")
-        else:
+        elif is_primary():
             self.path.mkdir(parents=True, exist_ok=True)
-        if hps is not None:
+        if hps is not None and (read_only or is_primary()):
             self._check_or_write_hps(hps)
+        if not read_only:
+            barrier()  # the directory and hps.json exist on every rank's return
+            if hps is not None and not is_primary():
+                self._check_or_write_hps(hps)
 
     def _check_or_write_hps(self, hps) -> None:
         meta = self.path / "hps.json"
@@ -54,7 +68,7 @@ class CheckpointManager:
                     f"{diffs} (saved, current); restored weights would not match the current "
                     f"feature space. Use a fresh -ckpt_dir or the hps it was trained with."
                 )
-        elif not self.read_only:
+        elif not self.read_only and is_primary():
             meta.write_text(json.dumps(current, indent=2) + "\n")
 
     def _file(self, step: int) -> Path:
@@ -69,9 +83,15 @@ class CheckpointManager:
 
     def save(self, state) -> None:
         """Save at the state's step (a step that exists is overwritten),
-        then drop all but the newest ``max_to_keep`` steps."""
+        then drop all but the newest ``max_to_keep`` steps (data-parallel:
+        rank 0 writes, every rank waits for it)."""
         if self.read_only:
             raise RuntimeError(f"checkpoint dir {self.path} is read-only")
+        if is_primary():
+            self._write(state)
+        barrier()
+
+    def _write(self, state) -> None:
         payload = {
             "step": state.step,
             "train_start": state.train_start,
@@ -99,7 +119,10 @@ class CheckpointManager:
             m.load_state_dict(payload["modules"][n])
         for n, o in state.opts.items():
             o.load_state_dict(payload["opts"][n])
-        state.gen.set_state(payload["gen"].cpu())
         state.step = int(payload["step"])
         state.train_start = int(payload["train_start"])
+        if state.rank == 0:
+            state.gen.set_state(payload["gen"].cpu())
+        else:  # the saved generator is rank 0's
+            state.reseed(state.step)
         return state

@@ -24,26 +24,47 @@ losses and per-module gradient norms are checked, and the first
 non-finite one raises ``FloatingPointError`` naming the phase and step
 (the counterpart of JAX's ``jax_debug_nans``); without it nothing is
 checked and nothing waits for the device.
+
+Data-parallel steps (``Solver(group=)``, one process a card, each with its
+rows of the global batch): after ``autograd.grad`` and before each
+module's clip, that module's gradients go through one ``all_reduce`` (a
+flat buffer, summed, divided by the world size), which is what pjit's psum
+gives the JAX step; the modules are not wrapped in
+``DistributedDataParallel``, whose hooks fire on ``.grad`` accumulation and
+never on ``autograd.grad``. Three places read more than a rank's rows and
+are made global, so that a step equals the single-process step on the
+global batch: the stage-2 target draw indexes the gathered ``spk_real``;
+the pair term's masked mean divides by the global count of valid frames,
+and its hinge acts on the global separation; the returned metrics are
+means over the ranks (so ``check_numerics`` raises on every rank
+together). Each rank's generator is seeded from (seed, rank).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from zerospeech_tts_tpu_torch.config import Hps
 from zerospeech_tts_tpu_torch.models.layers import Noise
 from zerospeech_tts_tpu_torch.models.mbv import discretize
 from zerospeech_tts_tpu_torch.params import MODULES, init_modules
+from zerospeech_tts_tpu_torch.parallel.distributed import all_gather_rows, all_reduce_mean_
 
 PAIR_SEP_MARGIN = 0.2  # min mean |z_t - z_{t+n/2}|: anti-collapse floor of the pair term
 
 
 class TrainState:
     """Step counters, the four modules, their Adam optimizers and the
-    generator every draw comes from (all on one device)."""
+    generator every draw comes from (all on one device). ``seed`` and
+    ``rank`` say where the generator comes from (``reseed``)."""
 
-    def __init__(self, hps: Hps, modules: dict, gen: torch.Generator):
+    def __init__(self, hps: Hps, modules: dict, gen: torch.Generator, seed: int | None = None,
+                 rank: int = 0):
+        self.seed = hps.seed if seed is None else seed
+        self.rank = rank
         self.step = 0
         self.train_start = -1  # global step at which the 'train' phase began
         self.modules = modules
@@ -52,6 +73,17 @@ class TrainState:
             for name, m in modules.items()
         }
         self.gen = gen
+
+    def reseed(self, step: int = 0) -> None:
+        """Seed the generator: rank 0 from seed + 1 (a single process's
+        seed), a data-parallel rank above 0 from (seed, rank, step). A
+        checkpoint holds rank 0's generator alone, so a resume at ``step``
+        restores it on rank 0 and reseeds every other rank here."""
+        if self.rank == 0:
+            self.gen.manual_seed(int(self.seed) + 1)
+        else:
+            seq = np.random.SeedSequence([int(self.seed) + 1, self.rank, int(step)])
+            self.gen.manual_seed(int(seq.generate_state(1)[0]))
 
     @property
     def device(self) -> torch.device:
@@ -63,13 +95,16 @@ class TrainState:
     dis = property(lambda self: self.modules["dis"])
 
 
-def init_state(hps: Hps, seed: int | None = None, device: str | torch.device = "cuda") -> TrainState:
-    """Seeded modules (params.init_modules) on ``device`` and a generator
-    there seeded from the same seed."""
+def init_state(hps: Hps, seed: int | None = None, device: str | torch.device = "cuda",
+               rank: int = 0) -> TrainState:
+    """Seeded modules (params.init_modules, the same on every rank) on
+    ``device`` and a generator there seeded from the same seed and the
+    rank (TrainState.reseed)."""
     seed = hps.seed if seed is None else seed
     mods = {n: m.to(device) for n, m in init_modules(hps, seed, MODULES).items()}
-    gen = torch.Generator(device=torch.device(device)).manual_seed(int(seed) + 1)
-    return TrainState(hps, mods, gen)
+    state = TrainState(hps, mods, torch.Generator(device=torch.device(device)), seed=seed, rank=rank)
+    state.reseed()
+    return state
 
 
 def _abs(x):
@@ -83,9 +118,13 @@ def _acc(logits, labels):
 
 
 class Solver:
-    def __init__(self, hps: Hps, check_numerics: bool = False):
+    def __init__(self, hps: Hps, check_numerics: bool = False, group=None):
+        """``group``: the process group of a data-parallel run (e.g.
+        ``torch.distributed.group.WORLD``), each rank stepping on its rows
+        of the global batch; None steps on the whole batch alone."""
         self.hps = hps
         self.check_numerics = check_numerics
+        self.group = group
         self.grad_norms: dict[str, torch.Tensor] = {}  # each module's last gradient norm (before clipping)
 
     # ------------------------------------------------------- shared pieces
@@ -108,6 +147,9 @@ class Solver:
         mx = self.hps.max_grad_norm
         for n in names:
             gs = [next(grads) for _ in params[n]]
+            if self.group is not None:  # one all_reduce a module: the mean over the ranks
+                flat = self._grad_mean(torch.cat([g.reshape(-1) for g in gs]))
+                gs = [f.view_as(g) for f, g in zip(flat.split([g.numel() for g in gs]), gs)]
             norm = torch.sqrt(sum((g * g).sum() for g in gs))
             self.grad_norms[n] = norm
             scale = torch.where(norm < mx, torch.ones_like(norm), mx / norm)
@@ -115,6 +157,10 @@ class Solver:
                 p.grad = g * scale
         for n in names:
             state.opts[n].step()
+
+    def _grad_mean(self, flat: torch.Tensor) -> torch.Tensor:
+        """A module's flattened gradient, averaged over the ranks in place."""
+        return all_reduce_mean_(flat, self.group)
 
     def alpha(self, step: int, train_start: int) -> float:
         """Adversarial weight, ramped over lat_sched_iters from the recorded
@@ -141,9 +187,20 @@ class Solver:
         za = torch.gather(z, 1, ia[..., None].expand(-1, -1, z.shape[2]))
         zb = torch.gather(z2, 1, ib[..., None].expand(-1, -1, z.shape[2]))
         valid = (t < n - d.abs()).to(z.dtype)
-        l_align = (_abs(za - zb) * valid[..., None]).sum() / (valid.sum() * z.shape[-1] + 1e-8)
+        l_sum = (_abs(za - zb) * valid[..., None]).sum()
+        count = valid.sum() * z.shape[-1]
         sep = _abs(z[:, n // 2 :] - z[:, : n - n // 2]).mean()
-        return l_align + F.relu(PAIR_SEP_MARGIN - sep)
+        if self.group is None:
+            return l_sum / (count + 1e-8) + F.relu(PAIR_SEP_MARGIN - sep)
+        # data-parallel: each rank's term is its share of the global masked
+        # mean, and the hinge is open where the global separation is under
+        # the margin, so the mean over ranks has the single-process value
+        # and gradient
+        world = dist.get_world_size(self.group)
+        count_g = count.detach().clone()
+        dist.all_reduce(count_g, group=self.group)
+        sep_g = all_reduce_mean_(sep.detach().clone(), self.group)
+        return l_sum * world / (count_g + 1e-8) + (PAIR_SEP_MARGIN - sep) * (sep_g < PAIR_SEP_MARGIN)
 
     def _has_pair(self, batch) -> bool:
         return self.hps.lambda_pair > 0 and "x2" in batch and "pair_dt" in batch
@@ -170,7 +227,7 @@ class Solver:
             metrics["loss_pair"] = l_pair
         self._update(state, ("enc", "dec"), loss)
         state.step += 1
-        return {k: v.detach() for k, v in metrics.items()}
+        return self._metrics(metrics)
 
     def step_pretrain_clf(self, state: TrainState, batch: dict, noise=None) -> dict:
         """Speaker classifier on stop-gradient (frozen encoder) latents."""
@@ -181,7 +238,7 @@ class Solver:
         l_clf = h.alpha_dis * F.cross_entropy(logits, batch["spk"])
         self._update(state, ("clf",), l_clf)
         state.step += 1
-        return {"loss_clf": l_clf.detach(), "acc_clf": _acc(logits.detach(), batch["spk"])}
+        return self._metrics({"loss_clf": l_clf, "acc_clf": _acc(logits.detach(), batch["spk"])})
 
     def step_train(self, state: TrainState, batch: dict, noise=None) -> dict:
         """(a) classifier step on stop-gradient latents, then (b) the
@@ -216,17 +273,29 @@ class Solver:
             metrics["loss_pair"] = l_pair
         self._update(state, ("enc", "dec"), loss)
         state.step += 1
-        out = {k: v.detach() for k, v in metrics.items()}
+        out = self._metrics(metrics)
         out["alpha"] = torch.tensor(alpha)
         return out
 
     # ---------------------------------------------------------- stage 2
 
     def _target_speakers(self, spk_real, noise):
-        """Targets drawn uniformly, with replacement, from the real labels."""
+        """Targets drawn uniformly, with replacement, from the real labels
+        of the global batch (data-parallel: every rank's ``spk_real``,
+        gathered; each rank draws its own rows' indices)."""
         n = spk_real.shape[0]
+        pool = spk_real if self.group is None else all_gather_rows(spk_real, self.group)
         u = noise.uniform((n,), spk_real.device)
-        return spk_real[(u * n).long().clamp(max=n - 1)]
+        return pool[(u * pool.shape[0]).long().clamp(max=pool.shape[0] - 1)]
+
+    def _metrics(self, metrics: dict) -> dict:
+        """Detached metrics; data-parallel, each the mean over the ranks
+        (one all_reduce)."""
+        out = {k: v.detach() for k, v in metrics.items()}
+        if self.group is None:
+            return out
+        vals = all_reduce_mean_(torch.stack([v.float() for v in out.values()]), self.group)
+        return dict(zip(out, vals.unbind()))
 
     def step_patch_d(self, state: TrainState, batch: dict, noise=None) -> dict:
         """WGAN-GP critic step: fakes are the decoder's conversions of
@@ -251,8 +320,8 @@ class Solver:
         loss = h.beta_dis * (-w_dist) + h.lambda_ * gp + h.beta_clf * l_cls
         self._update(state, ("dis",), loss)
         state.step += 1
-        return {"loss_d": loss.detach(), "w_dist": w_dist.detach(), "grad_penalty": gp.detach(),
-                "loss_d_cls": l_cls.detach(), "acc_d_cls": _acc(cls_real.detach(), spk_real)}
+        return self._metrics({"loss_d": loss, "w_dist": w_dist, "grad_penalty": gp, "loss_d_cls": l_cls,
+                              "acc_d_cls": _acc(cls_real.detach(), spk_real)})
 
     def step_patch_g(self, state: TrainState, batch: dict, noise=None) -> dict:
         """Generator (decoder) step: fool the critic and land its speaker
@@ -271,7 +340,7 @@ class Solver:
             loss = loss + h.beta_rec * _abs(state.dec(z, batch["spk"]) - x_src).mean()
         self._update(state, ("dec",), loss)
         state.step += 1
-        return {"loss_g": loss.detach(), "loss_g_adv": l_adv.detach(), "loss_g_cls": l_cls.detach()}
+        return self._metrics({"loss_g": loss, "loss_g_adv": l_adv, "loss_g_cls": l_cls})
 
     # -------------------------------------------------------- orchestration
 
