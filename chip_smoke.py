@@ -92,6 +92,17 @@
    the conversion workload through Converter(devices=["cuda:0", "cuda:0"])
    against one device (units bit for bit or within a 1e-4 logit margin,
    PCM within 1 LSB, kernels 1, 2 and 4 held at this route's inputs).
+   Tensor parallelism over model=2 (the flagship's min_size): dp_parity at
+   data=1,model=2 (2 ranks) and data=2,model=2 (4 ranks) on cuda:0 over
+   gloo (over NCCL on cards 0-1 and 0-3 where visible), at the same bars
+   with the blocks gathered, each rank's resident state
+   (memory_allocated, once placed and after a step of each kind) within 2%
+   of its device0_bytes count and below world 1's; a planted swap of
+   gradient blocks between the model ranks, which every step must fail;
+   train1 --mesh data=1,model=2 from the loader (rank 0 alone writes, its
+   step loads at world 1), steps/s beside one process's. Every launched
+   world runs RANK_CLI: kernels 2 and 3 launched as often as called, and
+   rank 0 holds every input they met against the plain versions.
 7. Prints the card (nvidia-smi name, power limit), one JSON line with the
    kernels' results (``launches``: the count on the path the kernel's slice
    ported, conversion or training; ``launches_by_path``: each path's own
@@ -335,7 +346,8 @@ def hold_path_calls(name: str, calls: dict, where: str) -> float:
     it) through the kernel and its plain version; fails on a bar, returns
     the largest kernel-vs-plain difference (kernel 4: of consistency).
 
-    Kernel 2, and kernel 1's mel: max_abs_err <= 1e-4; kernel 2 in bf16:
+    Kernel 2, and kernel 1's mel: max_abs_err <= 1e-4; kernel 3: dxw
+    max_abs_err <= 1e-4, dwh and dbh rel-L2 <= 1e-4; kernel 2 in bf16:
     within one bf16 ulp at the top of the GRU's range (2^-8; the share of
     equal elements is printed: the kernel and the plain version sum each
     product in other f32 orders, and once a state on a bf16 rounding
@@ -373,6 +385,11 @@ def hold_path_calls(name: str, calls: dict, where: str) -> float:
         elif name == "gru":
             err = (out_k - out_p).abs().max().item()
             check(err <= 1e-4, f"{where}: gru at {shape} {kw}: max_abs_err {err} (atol 1e-4)")
+        elif name == "gru_bwd":
+            err = (out_k[0] - out_p[0]).abs().max().item()
+            r_wh, r_bh = rel_l2(out_k[1], out_p[1]), rel_l2(out_k[2], out_p[2])
+            check(err <= 1e-4 and r_wh <= 1e-4 and r_bh <= 1e-4,
+                  f"{where}: gru_bwd at {shape} {kw}: dxw max_abs_err {err}, dwh {r_wh}, dbh {r_bh} (1e-4)")
         elif name == "gru_bf16":
             d = (out_k.float() - out_p.float()).abs()
             d_c = (gru_scan_bf16_state(*args, **kw).float() - out_p.float()).abs()
@@ -1761,21 +1778,33 @@ def host_data_path(work: Path, device: str = "cuda", iters: int = 20) -> dict:
 
 # one rank of a launched world: join the group on the device and over the
 # backend named first (gloo for two ranks on one card), run the CLI on the
-# other arguments, then report this process's kernel launches on stderr
-RANK_CLI = ("import json, sys\n"
+# other arguments with kernels 2 and 3's inputs kept (capture), then report
+# this process's kernel launches on stderr; rank 0 also holds each kept
+# input on the card against the plain version (hold_path_calls) and reports
+# the largest differences
+RANK_CLI = ("import json, os, sys\n"
+            "import chip_smoke\n"
             "from zerospeech_tts_tpu_torch import cli, ops, parallel\n"
             "parallel.initialize(device=sys.argv[1], backend=sys.argv[2])\n"
-            "cli.main(sys.argv[3:])\n"
-            "print('LAUNCHES ' + json.dumps(ops.launch_counts()), file=sys.stderr)\n")
+            "calls = {}\n"
+            "with chip_smoke.capture(('gru', 'gru_bwd'), calls):\n"
+            "    cli.main(sys.argv[3:])\n"
+            "print('LAUNCHES ' + json.dumps(ops.launch_counts()), file=sys.stderr)\n"
+            "print('CAPTURED ' + json.dumps({k: sum(c for _, _, c in v.values()) for k, v in calls.items()}),\n"
+            "      file=sys.stderr)\n"
+            "if os.environ['RANK'] == '0' and sys.argv[1] == 'cuda':\n"
+            "    held = {k: chip_smoke.hold_path_calls(k, v, 'rank 0') for k, v in calls.items() if v}\n"
+            "    print('HELD ' + json.dumps(held), file=sys.stderr)\n")
 
 
-def rank_launches(outs) -> dict:
-    """The kernel launches the ranks of a world reported, summed."""
+def rank_report(outs, tag: str) -> dict:
+    """What the ranks of a world reported on a RANK_CLI line (LAUNCHES,
+    CAPTURED, HELD: rank 0's alone), summed over the ranks that did."""
     total: dict = {}
     for _, _, err in outs:
-        line = [x for x in err.splitlines() if x.startswith("LAUNCHES ")][-1]
-        for k, v in json.loads(line[len("LAUNCHES "):]).items():
-            total[k] = total.get(k, 0) + v
+        for line in [x for x in err.splitlines() if x.startswith(tag + " ")][-1:]:
+            for k, v in json.loads(line[len(tag) + 1:]).items():
+                total[k] = total.get(k, 0) + v
     return total
 
 
@@ -1787,15 +1816,17 @@ def steps_per_s(text: str) -> dict:
                                                                  text, re.M)}
 
 
-def dp_train(work: Path, host: Path, world: int, backend: str, local_ranks, iters: int, hps_path: Path,
-             device: str = "cuda") -> dict:
-    """``train1 --mesh data=<world>`` over ``backend`` from the SegmentLoader
-    and with --device-data (host_data_path's corpus and index), each from a
-    fresh -ckpt_dir: every rank exits 0, rank 1 prints nothing, the
-    directory holds rank 0's files alone (hps.json, the log, the final
-    step), the log's losses are finite and the step loads into a fresh
-    state. Returns each route's steps/s (rank 0's phase lines) and the
-    ranks' kernel launches, summed."""
+def dp_train(work: Path, host: Path, mesh: str, world: int, backend: str, local_ranks, iters: int, hps_path: Path,
+             device: str = "cuda", routes=("loader", "device_data")) -> dict:
+    """``train1 --mesh <mesh>`` (``world`` processes) over ``backend`` from
+    the SegmentLoader and/or with --device-data (host_data_path's corpus and
+    index), each from a fresh -ckpt_dir, through RANK_CLI: every rank exits
+    0, rank 1 prints nothing, the directory holds rank 0's files alone
+    (hps.json, the log, the final step), the log's losses are finite, the
+    step loads into a fresh world-1 state, kernels 2 and 3 were launched as
+    often as their wrappers were called, and rank 0 held every input they
+    met against the plain versions. Returns each route's steps/s (rank 0's
+    phase lines), the holds and the ranks' kernel launches, summed."""
     import numpy as np
 
     from zerospeech_tts_tpu_torch.config import DEFAULT_HPS_PATH, load_configs
@@ -1804,16 +1835,17 @@ def dp_train(work: Path, host: Path, world: int, backend: str, local_ranks, iter
 
     hps, _ = load_configs(DEFAULT_HPS_PATH)
     out = {}
-    for route, extra in (("loader", []), ("device_data", ["--device-data"])):
-        ck = work / f"ck_{backend}_{world}_{route}"
+    for route in routes:
+        ck = work / f"ck_{backend}_{mesh.replace('=', '').replace(',', '_')}_{route}"
         t0 = time.perf_counter()
         outs = launch(["-c", RANK_CLI, device, backend, "train1", "-dataset_path", str(host / "ds"), "-index_path",
                        str(host / "idx.json"), "-ckpt_dir", str(ck), "--hps", str(hps_path), "--iters-override",
-                       str(iters), "--mesh", f"data={world}", "--device", device, *extra], world,
+                       str(iters), "--mesh", mesh, "--device", device]
+                      + (["--device-data"] if route == "device_data" else []), world,
                       local_ranks=local_ranks, timeout=600)
         wall = time.perf_counter() - t0
         for r, (rc, _, err) in enumerate(outs):
-            check(rc == 0, f"train1 --mesh data={world} ({backend}, {route}) rank {r} exited {rc}:\n{err[-3000:]}")
+            check(rc == 0, f"train1 --mesh {mesh} ({backend}, {route}) rank {r} exited {rc}:\n{err[-3000:]}")
         check(all(o.strip() == "" for _, o, _ in outs[1:]), f"{route}: a rank above 0 printed")
         files = sorted(str(f.relative_to(ck)) for f in ck.rglob("*") if f.is_file()
                        and not f.name.startswith("events.out.tfevents"))
@@ -1825,15 +1857,71 @@ def dp_train(work: Path, host: Path, world: int, backend: str, local_ranks, iter
               f"{route}: non-finite logged losses")
         st = CheckpointManager(ck, hps=hps, read_only=True).restore(init_state(hps, device=device))
         check(st.step == 3 * iters, f"{route}: rank 0's checkpoint restores step {st.step}")
-        n = rank_launches(outs)
-        check(device != "cuda" or (n["gru"] > 0 and n["gru_bwd"] > 0), f"{route}: kernels 2 and 3 launched {n}")
+        n, captured = rank_report(outs, "LAUNCHES"), rank_report(outs, "CAPTURED")
+        held = rank_report(outs, "HELD") if device == "cuda" else {}
+        check(device != "cuda" or (n["gru"] > 0 and n["gru_bwd"] > 0 and set(held) == {"gru", "gru_bwd"}
+                                   and all(n[k] == captured[k] for k in held)),
+              f"{route}: kernels 2 and 3 launched {n}, their wrappers called {captured}, held {held}")
         rates = steps_per_s(outs[0][1])
         check(set(rates) == {"pretrain_AE", "pretrain_C", "train"}, f"{route}: phase lines {rates}")
-        out[route] = dict(steps_per_s=rates, wall_s=wall, launches=n, log_lines=len(lines))
-        print(f"  train1 --mesh data={world} over {backend} ({route}, {iters} iterations a phase, ranks on cards "
+        out[route] = dict(steps_per_s=rates, wall_s=wall, launches=n, held=held, log_lines=len(lines))
+        print(f"  train1 --mesh {mesh} over {backend} ({route}, {iters} iterations a phase, ranks on cards "
               f"{local_ranks or list(range(world))}): steps/s " + " ".join(f"{k} {v:.3f}" for k, v in rates.items())
-              + f"; wall {wall:.1f} s; launches {out[route]['launches']}", flush=True)
+              + f"; wall {wall:.1f} s; launches {n}; rank 0 held kernels 2 and 3 at every input they met: "
+              + " ".join(f"{k} {v:.3e}" for k, v in held.items()), flush=True)
     return out
+
+
+def print_parity(tag: str, report: dict) -> None:
+    """One line a step of a dp_parity report beside its bars."""
+    from zerospeech_tts_tpu_torch.tools import dp_parity
+
+    for name, r in report.items():
+        print(f"  dp_parity {tag} {name}: params rel-L2 "
+              + " ".join(f"{n} {v:.2e}" for n, v in r["param_rel"].items()) + ", max |diff| "
+              + " ".join(f"{n} {v:.2e}" for n, v in r["param_max_abs"].items()) + "; gradient rel-L2 "
+              + " ".join(f"{n} {v:.2e}" for n, v in r["grad_rel_l2"].items()) + "; pre-clip norm rel "
+              + " ".join(f"{n} {v:.2e}" for n, v in r["grad_norm_rel"].items())
+              + f" (each <= {dp_parity.BAR}); metrics rel <= {max(r['metrics_rel'].values()):.2e} (1e-4); "
+              f"ranks equal {r['ranks_equal']}", flush=True)
+
+
+def tp_parity(case: dict, data: int, backend: str, local_ranks, device: str = "cuda") -> dict:
+    """tools/dp_parity.py on a data x 2 mesh (tensor-parallel over model,
+    the flagship's default min_size) against the single-process step, at
+    dp_parity.failures' bars; on the card, each rank's resident state
+    (torch.cuda.memory_allocated) once placed and after a step of each
+    kind within 2% of the device0_bytes count of its blocks and below the
+    world-1 count, as the allocator's blocks and as the bytes the tensors
+    requested. The ranks' allocator splits blocks at 512 B
+    (expandable_segments): the default one hands out a large block whole
+    when less than 1 MB of it would be left, 3-6% above the requested
+    bytes at these sizes."""
+    import os
+
+    from zerospeech_tts_tpu_torch.tools import dp_parity
+
+    t0 = time.perf_counter()
+    par = dp_parity.run(case, world=2 * data, model=2, device=device, backend=backend, local_ranks=local_ranks,
+                        env=dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True"))
+    wall = time.perf_counter() - t0
+    tag = f"{backend} ({par['device']}, data={data},model=2)"
+    print_parity(tag, par["report"])
+    missed = dp_parity.failures(par["report"])
+    check(not missed, f"dp_parity {tag}: " + "; ".join(missed))
+    for r, m in enumerate(par["memory"] or []):
+        print(f"  dp_parity {tag} rank {r} resident state, memory_allocated (requested bytes): placed "
+              f"{m['placed']:,} ({m['placed_requested']:,}) B, after a step of each kind {m['placed_after_steps']:,} "
+              f"({m['placed_after_steps_requested']:,}) B; device0_bytes count {m['count']:,} B (within 2%); world 1: "
+              f"count {m['count_world1']:,} B, built {m['world1_built']:,} ({m['world1_built_requested']:,}) B, after "
+              f"the steps {m['world1_after_steps']:,} ({m['world1_after_steps_requested']:,}) B (its gradients kept)",
+              flush=True)
+        for key in ("placed", "placed_after_steps", "placed_requested", "placed_after_steps_requested"):
+            world1 = m["world1_built_requested" if key.endswith("requested") else "world1_built"]
+            check(abs(m[key] - m["count"]) <= 0.02 * m["count"] and m[key] < world1 and m["count"] < m["count_world1"],
+                  f"dp_parity {tag} rank {r}: {key} {m[key]} B against the count {m['count']} "
+                  f"(world 1 {m['count_world1']})")
+    return dict(par["report"], memory=par["memory"], wall_s=wall)
 
 
 def multi_device_path(work: Path, host: Path, conv_out: Path, iters: int = 10, device: str = "cuda") -> dict:
@@ -1848,12 +1936,19 @@ def multi_device_path(work: Path, host: Path, conv_out: Path, iters: int = 10, d
     all_reduce without its division by the world size), where every step
     must miss a bar; then dp_train; steps/s beside the world-1 run of the
     same command (--mesh data=1, one process), a record and not a claim:
-    two ranks share one card. (b) World 1 over NCCL: train1, one iteration
-    a phase, through the data-parallel code path. (c) The conversion
-    workload through Converter(devices=["cuda:0", "cuda:0"]) against one
-    device at GL-100: units bit for bit (or apart only within a 1e-4 logit
-    margin), PCM within 1 LSB, kernels 1, 2 and 4 held at the inputs this
-    route gave them, launches counted, warm walls of both."""
+    two ranks share one card. (a') Tensor parallelism over model=2:
+    tp_parity at data=1,model=2 (2 ranks) and data=2,model=2 (4 ranks) on
+    cuda:0 over gloo (over NCCL on cards 0-1, and 0-3, where visible), the
+    ranks of a model group holding the same whole leaves and blocks that
+    gather to the single-process step's parameters, each rank's resident
+    state against its count; the planted fault (gradient blocks swapped
+    between the model ranks) must miss a bar in every step; dp_train with
+    --mesh data=1,model=2 from the loader. (b) World 1 over NCCL: train1,
+    one iteration a phase, through the data-parallel code path. (c) The
+    conversion workload through Converter(devices=["cuda:0", "cuda:0"])
+    against one device at GL-100: units bit for bit (or apart only within a
+    1e-4 logit margin), PCM within 1 LSB, kernels 1, 2 and 4 held at the
+    inputs this route gave them, launches counted, warm walls of both."""
     import shutil
 
     import numpy as np
@@ -1874,22 +1969,16 @@ def multi_device_path(work: Path, host: Path, conv_out: Path, iters: int = 10, d
     hps, _ = load_configs(DEFAULT_HPS_PATH)
     hps_path = work / "hps.json"  # the flagship's, logging once a phase
     hps_path.write_text(json.dumps(dict(json.loads(Path(DEFAULT_HPS_PATH).read_text()), log_interval=iters)))
-    worlds = [("gloo", [0, 0])] + ([("nccl", None)] if torch.cuda.device_count() >= 2 else [])
-    report: dict = {"dp_parity": {}, "train": {}}
+    n_cards = torch.cuda.device_count() if device == "cuda" else 1
+    worlds = [("gloo", [0, 0])] + ([("nccl", None)] if n_cards >= 2 else [])
+    report: dict = {"dp_parity": {}, "train": {}, "tp_parity": {}}
     launches = {}
     case = dp_parity.make_case(hps, seed=0, device=device)
     for backend, local_ranks in worlds:
         t0 = time.perf_counter()
         par = dp_parity.run(case, world=2, device=device, backend=backend, local_ranks=local_ranks)
         wall = time.perf_counter() - t0
-        for name, r in par["report"].items():
-            print(f"  dp_parity {backend} ({par['device']}, world 2) {name}: params rel-L2 "
-                  + " ".join(f"{n} {v:.2e}" for n, v in r["param_rel"].items()) + ", max |diff| "
-                  + " ".join(f"{n} {v:.2e}" for n, v in r["param_max_abs"].items()) + "; gradient rel-L2 "
-                  + " ".join(f"{n} {v:.2e}" for n, v in r["grad_rel_l2"].items()) + "; pre-clip norm rel "
-                  + " ".join(f"{n} {v:.2e}" for n, v in r["grad_norm_rel"].items())
-                  + f" (each <= {dp_parity.BAR}); metrics rel <= {max(r['metrics_rel'].values()):.2e} (1e-4); "
-                  f"ranks equal {r['ranks_equal']}", flush=True)
+        print_parity(f"{backend} ({par['device']}, world 2)", par["report"])
         missed = dp_parity.failures(par["report"])
         check(not missed, f"dp_parity {backend}: " + "; ".join(missed))
         report["dp_parity"][backend] = dict(par["report"], wall_s=wall)
@@ -1902,7 +1991,7 @@ def multi_device_path(work: Path, host: Path, conv_out: Path, iters: int = 10, d
             check(caught == set(par["report"]), f"dp_parity control: steps {set(par['report']) - caught} met "
                   "every bar with a gradient twice its size")
             report["dp_parity"]["control_missed"] = ctl
-        report["train"][backend] = dp_train(work, host, 2, backend, local_ranks, iters, hps_path, device)
+        report["train"][backend] = dp_train(work, host, "data=2", 2, backend, local_ranks, iters, hps_path, device)
         for route, v in report["train"][backend].items():
             launches[f"multi_device_dp_{backend}_{route}"] = v.pop("launches")
     one = {}
@@ -1917,6 +2006,26 @@ def multi_device_path(work: Path, host: Path, conv_out: Path, iters: int = 10, d
         f"{route} " + " ".join(f"{k} {one[route][k]:.3f} / {report['train']['gloo'][route]['steps_per_s'][k]:.3f}"
                                for k in one[route]) for route in one), flush=True)
 
+    # (a') tensor parallelism over model=2: parity, resident state, the control, train1 through the CLI
+    tp_worlds = [("gloo", 1, [0, 0]), ("gloo", 2, [0] * 4)] + [
+        ("nccl", d, None) for d in (1, 2) if n_cards >= 2 * d]
+    for backend, data, local_ranks in tp_worlds:
+        report["tp_parity"][f"{backend}_data{data}"] = tp_parity(case, data, backend, local_ranks, device)
+    ctl = dp_parity.failures(dp_parity.run(case, world=4, model=2, device=device, backend="gloo",
+                                           local_ranks=[0] * 4, control=True)["report"])
+    caught = {name for name, _, _ in dp_parity.STEPS if any(x.startswith(f"{name}: grad_rel_l2") for x in ctl)}
+    print(f"  dp_parity control at data=2,model=2 (gradient blocks swapped between the model ranks): {len(ctl)} "
+          f"bars missed, steps caught by the gradient bar {len(caught)} of {len(dp_parity.STEPS)}: "
+          + "; ".join(ctl), flush=True)
+    check(len(caught) == len(dp_parity.STEPS), f"dp_parity TP control: steps caught {caught}")
+    report["tp_parity"]["control_missed"] = ctl
+    report["train"]["tp_gloo"] = dp_train(work, host, "data=1,model=2", 2, "gloo", [0, 0], iters, hps_path, device,
+                                          routes=("loader",))
+    launches["multi_device_tp_gloo_loader"] = report["train"]["tp_gloo"]["loader"].pop("launches")
+    print("  train1 steps/s, world 1 (one process) against data=1,model=2 on one card over gloo (loader): " + " ".join(
+        f"{k} {one['loader'][k]:.3f} / {report['train']['tp_gloo']['loader']['steps_per_s'][k]:.3f}"
+        for k in one["loader"]), flush=True)
+
     # (b) world 1 over NCCL through the data-parallel code path
     ck = work / "ck_nccl_1"
     outs = launch(["-c", RANK_CLI, device, "nccl" if device == "cuda" else "gloo", "train1", "-dataset_path",
@@ -1925,7 +2034,7 @@ def multi_device_path(work: Path, host: Path, conv_out: Path, iters: int = 10, d
                   1, timeout=600)
     rc, o, err = outs[0]
     check(rc == 0 and "stage-1 done at step 3" in o, f"train1 over NCCL at world 1 exited {rc}:\n{err[-3000:]}")
-    launches["multi_device_nccl_1"] = rank_launches(outs)
+    launches["multi_device_nccl_1"] = rank_report(outs, "LAUNCHES")
     check(device != "cuda" or launches["multi_device_nccl_1"]["gru_bwd"] > 0, "NCCL world 1: kernel 3 not launched")
     print(f"  train1 over NCCL, world 1: step 3, launches {launches['multi_device_nccl_1']}", flush=True)
 

@@ -511,3 +511,50 @@ def test_dp_parity_two_ranks_on_one_card_over_gloo(cuda):
     ctl = dp_parity.failures(dp_parity.run(case, control=True, **kw)["report"])
     for name in out["report"]:
         assert any(x.startswith(f"{name}: grad_norm_rel") for x in ctl), (name, ctl)
+
+
+def test_tp_parity_two_ranks_on_one_card_over_gloo(cuda):
+    """tools/dp_parity.py at data=1, model=2 on cuda:0 over gloo, tiny
+    width (JAX's min_size 128), from Adam moments that are not zero: every
+    step meets dp_parity.failures' bars against the single-process step
+    (whole leaves bit-equal across the model group, blocks gathered);
+    each rank's resident state after a step of each kind is what it held
+    once placed (no whole weight or gradient outlives a step) and below a
+    world-1 state's; with the planted fault (gradient blocks swapped
+    between the model ranks) every step misses its gradient bar."""
+    from zerospeech_tts_tpu_torch.config import Hps
+    from zerospeech_tts_tpu_torch.tools import dp_parity
+
+    h = Hps(speaker_norm=False, batch_size=8, seg_len=32, n_feat=64, emb_size=32, spk_emb_size=8, n_speakers=4,
+            bank_size=4, bank_channels=8, conv_channels=16, n_critic=1)
+    case = dp_parity.make_case(h, seed=3, device="cuda")
+    kw = dict(world=2, model=2, min_size=128, device="cuda", backend="gloo", local_ranks=[0, 0], timeout=300)
+    out = dp_parity.run(case, **kw)
+    assert (out["data"], out["model"], out["device"]) == (1, 2, "cuda:0")
+    assert not dp_parity.failures(out["report"])
+    assert len(out["memory"]) == 2
+    for m in out["memory"]:
+        assert m["placed_after_steps"] == m["placed"] < m["world1_built"], m
+        assert m["count"] < m["count_world1"]
+    ctl = dp_parity.failures(dp_parity.run(case, control=True, **kw)["report"])
+    for name in out["report"]:
+        assert any(x.startswith(f"{name}: grad_rel_l2") for x in ctl), (name, ctl)
+
+
+def test_resident_reading_leaves_out_a_free_pending_on_another_stream(cuda):
+    """tools/dp_parity.resident, the resident-bytes reading: a tensor freed
+    while a side stream still used it (gloo and NCCL record their streams
+    on a collective's tensors) counts in neither of its readings, though
+    the allocator keeps its block in requested_bytes until it sees the
+    stream's event done."""
+    from zerospeech_tts_tpu_torch.tools import dp_parity
+
+    base = dp_parity.resident(cuda)
+    x = torch.ones(1 << 22, device=cuda)  # 16 MiB
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        x.mul_(2)
+    x.record_stream(side)
+    del x
+    assert dp_parity.resident(cuda) == base

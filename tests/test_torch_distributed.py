@@ -69,12 +69,11 @@ def _eps(k, b):
     return np.asarray(jax.random.uniform(jax.random.fold_in(k, 7), (b, 1, 1)))
 
 
-@pytest.fixture(scope="module")
-def case(hps):
+def jax_case(h):
     """A fresh JAX state at step 5 of the 'train' phase (alpha = alpha_enc /
     2), a global batch and JAX's draws for each step; the dp_parity case
-    built from them."""
-    h = hps
+    built from them: (JAX solver, JAX state, case, the stage-2 target
+    uniforms)."""
     js = JaxSolver(h)
     base = jax.jit(js.init_state)(jax.random.PRNGKey(0)).replace(
         step=jnp.asarray(5, jnp.int32), train_start=jnp.asarray(0, jnp.int32))
@@ -98,6 +97,11 @@ def case(hps):
         steps=[dict(name=name, fn=fn, batch={kk: full[kk] for kk in keys}, draws=draws[name])
                for name, fn, keys in dp_parity.STEPS])
     return js, base, case, target_u
+
+
+@pytest.fixture(scope="module")
+def case(hps):
+    return jax_case(hps)
 
 
 @pytest.fixture(scope="module")

@@ -1,5 +1,5 @@
-"""PyTorch port, multi-device pieces in one process: ``--mesh`` parsing and
-its refusals, the process-group no-op, ``ShardedDeviceDataset`` shard for
+"""PyTorch port, multi-device pieces in one process: ``--mesh`` parsing (both
+axes) and what the CLI refuses, the process-group no-op, ``ShardedDeviceDataset`` shard for
 shard against the JAX ``ShardedDeviceDataset`` at world 2 and 4, the
 Converter split over k devices against the single-device Converter and
 the JAX Converter on a ``data=4`` mesh, and the ``SegmentLoader``'s rank
@@ -34,23 +34,32 @@ MARGIN = 1e-4  # a unit that differs from JAX's must sit within this JAX logit m
 
 
 def test_parse_mesh_and_refusals():
-    assert parallel.parse_mesh(None) == 1 and parallel.parse_mesh("") == 1
-    assert parallel.parse_mesh("data=4") == 4
-    assert parallel.parse_mesh("data=2,model=1", n_devices=2) == 2
-    assert parallel.parse_mesh("model=1", n_devices=8) == 8  # data left out: all devices
+    """(data, model) as JAX's make_mesh reads them (the model axis
+    accepted); a mesh wider than the devices, an unknown axis and a batch
+    that does not divide raise; Mesh places rank r at (r // M, r % M)."""
+    assert parallel.parse_mesh(None) == (1, 1) and parallel.parse_mesh("") == (1, 1)
+    assert parallel.parse_mesh("data=4") == (4, 1)
+    assert parallel.parse_mesh("data=2,model=1", n_devices=2) == (2, 1)
+    assert parallel.parse_mesh("model=1", n_devices=8) == (8, 1)  # data left out: all devices
+    assert parallel.parse_mesh("data=4,model=2") == (4, 2)
+    assert parallel.parse_mesh("model=2", n_devices=8) == (4, 2)
     with pytest.raises(ValueError, match="needs 16 devices, have 8"):
         parallel.parse_mesh("data=16", n_devices=8)
-    with pytest.raises(SystemExit, match="tensor parallelism over the 'model' axis"):
-        parallel.parse_mesh("data=4,model=2")
+    with pytest.raises(ValueError, match="needs 8 devices, have 4"):
+        parallel.parse_mesh("data=4,model=2", n_devices=4)
     with pytest.raises(ValueError, match="data=D"):
         parallel.parse_mesh("pipe=2")
+    assert [(parallel.Mesh(2, 2, r).d, parallel.Mesh(2, 2, r).m) for r in range(4)] == [(0, 0), (0, 1), (1, 0), (1, 1)]
     assert parallel.batch_slice(1, 4, 32) == slice(8, 16)
     with pytest.raises(ValueError, match="does not divide"):
         parallel.batch_slice(0, 3, 32)
     assert parallel.conversion_devices("cpu", 3) == [torch.device("cpu")] * 3
+    assert parallel.conversion_devices("cpu", 2, 2) == [torch.device("cpu")] * 2
     if not torch.cuda.is_available():
         with pytest.raises(ValueError, match="needs 2 devices, have 0"):
             parallel.conversion_devices("cuda", 2)
+        with pytest.raises(ValueError, match="data=2 x model=2 needs 4 devices, have 0"):
+            parallel.conversion_devices("cuda", 2, 2)
 
 
 def test_initialize_is_a_noop_without_the_launcher(monkeypatch):
@@ -67,20 +76,26 @@ def test_initialize_is_a_noop_without_the_launcher(monkeypatch):
 
 
 def test_cli_refuses_what_the_mesh_cannot_do(tmp_path, monkeypatch):
-    """train1 --mesh data=2 outside a launch names the torchrun line; a
-    conversion verb in a multi-process launch and --mesh model=2 exit."""
+    """train1 --mesh data=2 or data=1,model=2 outside a launch names the
+    torchrun line with data x model processes; a world that is not data x
+    model is refused; a conversion verb in a multi-process launch exits
+    (the JAX package has no multi-process conversion)."""
     for k in parallel.distributed.ENV:
         monkeypatch.delenv(k, raising=False)
     args = ["train1", "-dataset_path", "ds", "-index_path", "i.json", "-ckpt_dir", str(tmp_path / "ck"),
             "--device", "cpu"]
     with pytest.raises(SystemExit, match="torchrun --nproc-per-node 2 -m zerospeech_tts_tpu_torch train1"):
         cli.main(args + ["--mesh", "data=2"])
-    with pytest.raises(SystemExit, match="tensor parallelism"):
+    want = ("(?s)--mesh data=1,model=2 but WORLD_SIZE is 1: .*\n  torchrun --nproc-per-node 2 "
+            "-m zerospeech_tts_tpu_torch train1 .* --mesh data=1,model=2")
+    with pytest.raises(SystemExit, match=want):
         cli.main(args + ["--mesh", "data=1,model=2"])
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(SystemExit, match="--nproc-per-node 2 .* --mesh data=2"):
         cli.main(args)
-    with pytest.raises(SystemExit, match="multi-host\\) conversion is a later slice"):
+    with pytest.raises(SystemExit, match="(?s)--mesh data=2,model=2 but WORLD_SIZE is 2: .* --nproc-per-node 4 "):
+        cli.main(args + ["--mesh", "data=2,model=2"])
+    with pytest.raises(SystemExit, match="the JAX package has no multi-process \\(multi-host\\) conversion"):
         cli.main(["convert-single", "--from-export", "b", "--source", "x.wav", "--target", "V001",
                   "-result_dir", "o", "--device", "cpu", "--mesh", "data=2"])
     assert not (tmp_path / "ck").exists()

@@ -6,7 +6,7 @@
     python -m zerospeech_tts_tpu_torch train1 -dataset_path DS -index_path IDX -ckpt_dir CK \
         [--device-data [--data-bf16]] [--feat lin|mel] [--iters-override N] \
         [--train-batch-size B] [--no-pairs] [--fresh] [--load_model STEP|DIR] [--log_dir L] \
-        [--mesh data=D]   # under torchrun --nproc-per-node D
+        [--mesh data=D[,model=M]]   # under torchrun --nproc-per-node D*M
     python -m zerospeech_tts_tpu_torch train2 -dataset_path DS -index_path IDX -ckpt_dir CK \
         [--device-data [--data-bf16]] [--feat lin|mel] [--targets V001 V002] [--iters-override N]
     python -m zerospeech_tts_tpu_torch export -dataset_path DS -ckpt_dir CK --out B \
@@ -42,17 +42,19 @@ is visible; ``cpu`` runs their plain versions. Every verb but
 ``submission`` takes ``--profile DIR``, ``--check-numerics`` and
 ``--matmul-precision`` (see their help).
 
-``--mesh data=D`` (train1, train2, convert, convert-single, serve; the JAX
-``--mesh``, data axis only): training runs data-parallel over D processes,
-one a card, launched by ``torchrun --nproc-per-node D -m
-zerospeech_tts_tpu_torch train1 ... --mesh data=D`` (each process binds
+``--mesh data=D[,model=M]`` (train1, train2, convert, convert-single,
+serve; the JAX ``--mesh``): training runs over D*M processes, one a card,
+launched by ``torchrun --nproc-per-node D*M -m zerospeech_tts_tpu_torch
+train1 ... --mesh data=D,model=M`` (each process binds
 ``cuda:LOCAL_RANK``; NCCL on ``cuda``, gloo on ``cpu``; rank 0 prints,
-logs and saves; ``--device-data`` shards the arena over the ranks, the
-loader gives each rank its rows of every batch). Conversion splits every
-dispatch's rows over cards 0..D-1 of its one process; a multi-process
-launch of a conversion verb is refused. ``--mesh model=M`` (tensor
-parallelism) is not ported. ``submission`` and ``eval
---units/--abx`` read files only. ``--wire-uint8`` and ``--wire-mulaw`` are
+logs and saves): data-parallel over D (``--device-data`` shards the arena
+over the data ranks, the loader gives each its rows of every batch) and,
+with M above 1, tensor-parallel over M (each rank keeps its blocks of the
+large parameters and of their Adam moments, parallel/mesh.py; the state
+is placed so whether fresh or restored). Conversion replicates the model
+and splits every dispatch's rows over the D data blocks of its one
+process, block d on card d*M; a multi-process launch of a conversion verb
+is refused. ``submission`` and ``eval --units/--abx`` read files only. ``--wire-uint8`` and ``--wire-mulaw`` are
 refused: they are on ROADMAP.md's "do not port" list.
 """
 
@@ -151,10 +153,10 @@ def dtype_flags(p) -> None:
 
 
 def mesh_flag(p) -> None:
-    p.add_argument("--mesh", default=None, metavar="data=D",
-                   help="data-parallel over D cards: training under torchrun --nproc-per-node D (one "
-                        "process a card), conversion over cards 0..D-1 of this process "
-                        "(model=M, tensor parallelism, is not ported)")
+    p.add_argument("--mesh", default=None, metavar="data=D[,model=M]",
+                   help="training under torchrun --nproc-per-node D*M (one process a card): data-parallel "
+                        "over D, tensor-parallel over M; conversion: the rows split over D data blocks, "
+                        "block d on card d*M of this process")
 
 
 def wire_flags(p) -> None:
@@ -478,35 +480,38 @@ def _say(*a) -> None:
         print(*a, flush=True)
 
 
-def _join_group(args) -> tuple[torch.device, object]:
-    """(this process's device, process group or None) of a training verb:
-    joins the group torchrun's variables describe (NCCL on cuda, gloo on
-    cpu), after checking that ``--mesh data=D`` names the launched world."""
+def _join_group(args) -> tuple[torch.device, parallel.Mesh, object]:
+    """(this process's device, its place on the mesh, world group or None)
+    of a training verb: joins the group torchrun's variables describe (NCCL
+    on cuda, gloo on cpu), after checking that ``--mesh data=D,model=M``
+    names the launched world, D*M."""
     dev = _device(args)
-    data, launched = parallel.parse_mesh(args.mesh), parallel.distributed.launched_world()
-    if data != launched:
+    (data, model), launched = parallel.parse_mesh(args.mesh), parallel.distributed.launched_world()
+    if data * model != launched:
         cmd = " ".join(shlex.quote(a) for a in args.argv)
         if args.mesh is None:
             cmd += f" --mesh data={launched}"
-        sys.exit(f"--mesh data={data} but WORLD_SIZE is {launched}: data-parallel training runs one "
-                 f"process a card; launch it as\n  torchrun --nproc-per-node {max(data, launched)} -m "
-                 f"zerospeech_tts_tpu_torch {cmd}")
+        mesh = f"data={data}" + (f",model={model}" if model > 1 else "")
+        sys.exit(f"--mesh {mesh} but WORLD_SIZE is {launched}: training runs one process a card, "
+                 f"data x model of them; launch it as\n  torchrun --nproc-per-node {max(data * model, launched)} "
+                 f"-m zerospeech_tts_tpu_torch {cmd}")
     if not parallel.initialize(device=dev):
-        return dev, None
-    return parallel.local_device(dev), torch.distributed.group.WORLD
+        return dev, parallel.Mesh(), None
+    return parallel.local_device(dev), parallel.Mesh(data, model, parallel.rank()), torch.distributed.group.WORLD
 
 
 def _make_training(args):
     """(hps, solver, data, state, ckpt, logger, set-up seconds): data is
-    the host SegmentLoader over -index_path (this rank's rows of every
+    the host SegmentLoader over -index_path (this data rank's rows of every
     batch), or with --device-data the arena on the device (with --mesh,
-    this rank's shard of it)."""
+    this data rank's shard of it); the state is placed on the mesh
+    (parallel.place_state: with model=M its blocks)."""
     from zerospeech_tts_tpu_torch.data.device_dataset import DeviceDataset, ShardedDeviceDataset
     from zerospeech_tts_tpu_torch.data.loader import SegmentLoader
     from zerospeech_tts_tpu_torch.train import CheckpointManager, Logger, Solver, init_state
 
-    dev, group = _join_group(args)
-    rank, world = parallel.rank(), parallel.world()
+    dev, mesh, group = _join_group(args)
+    data_group, model_group = parallel.mesh_groups(mesh) if group is not None else (None, None)
     t0 = time.time()
     hps, _ = load_configs(args.hps)
     if args.train_batch_size:
@@ -514,17 +519,17 @@ def _make_training(args):
     if args.device_data:
         kw = dict(target_speakers=args.targets, device=dev, feat=args.feat,
                   dtype=torch.bfloat16 if args.data_bf16 else torch.float32)
-        data = (ShardedDeviceDataset.from_corpus(args.dataset_path, hps, rank, world, **kw) if args.mesh
+        data = (ShardedDeviceDataset.from_corpus(args.dataset_path, hps, mesh.d, mesh.data, **kw) if args.mesh
                 else DeviceDataset.from_corpus(args.dataset_path, hps, **kw))
     else:  # stage 1 takes the same-utterance pair; stage 2 does not need it
         data = SegmentLoader(args.dataset_path, args.index_path, hps, feat=args.feat,
                              target_speakers=args.targets, device=dev, seed=hps.seed,
-                             pairs=args.cmd == "train1" and not args.no_pairs, rank=rank, world=world)
-    state = init_state(hps, device=dev, rank=rank)
+                             pairs=args.cmd == "train1" and not args.no_pairs, rank=mesh.d, world=mesh.data)
+    state = parallel.place_state(init_state(hps, device=dev, rank=mesh.d), mesh, model_group)
     ckpt = CheckpointManager(args.ckpt_dir, hps=hps)
     logger = Logger(args.log_dir or Path(args.ckpt_dir) / "logs")
     _sync(dev)
-    solver = Solver(hps, check_numerics=args.check_numerics, group=group)
+    solver = Solver(hps, check_numerics=args.check_numerics, group=group, data_group=data_group)
     return hps, solver, data, state, ckpt, logger, time.time() - t0
 
 
@@ -681,12 +686,12 @@ def _load_converter(args):
     launched = parallel.distributed.launched_world()
     if launched > 1:
         sys.exit(f"{args.cmd}: launched as {launched} processes (WORLD_SIZE): conversion runs in one "
-                 "process over its local cards (--mesh data=D); multi-process (multi-host) conversion "
-                 "is a later slice (ROADMAP.md)")
+                 "process over its local cards (--mesh data=D[,model=M]); the JAX package has no "
+                 "multi-process (multi-host) conversion either")
     devices = None
     if args.mesh:
         try:
-            devices = parallel.conversion_devices(dev, parallel.parse_mesh(args.mesh))
+            devices = parallel.conversion_devices(dev, *parallel.parse_mesh(args.mesh))
         except ValueError as e:
             sys.exit(f"--mesh {args.mesh}: {e}")
     feat = getattr(args, "feat", None)

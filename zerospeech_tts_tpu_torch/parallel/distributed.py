@@ -1,17 +1,18 @@
 """Process groups of the PyTorch port (counterpart of
 ``zerospeech_tts_tpu/parallel/distributed.py``).
 
-Training is data-parallel with one process per card, launched the way
-PyTorch launches it::
+Training runs one process per card, launched the way PyTorch launches
+it::
 
-    torchrun --nproc-per-node D -m zerospeech_tts_tpu_torch train1 ... --mesh data=D
+    torchrun --nproc-per-node D*M -m zerospeech_tts_tpu_torch train1 ... --mesh data=D,model=M
 
 Every process calls :func:`initialize` first: it reads the variables
 torchrun sets (``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``, ``MASTER_ADDR``,
 ``MASTER_PORT``), joins the group over TCP, and binds ``cuda:LOCAL_RANK``.
 The backend follows the device: NCCL on ``cuda``, gloo on ``cpu``.
 Without the variables it returns False and nothing else changes, as the
-JAX function does on a single host.
+JAX function does on a single host. :func:`mesh_groups` makes each rank's
+data group and model group (parallel/mesh.py lays the ranks out).
 
 Every collective of the port is an ``all_reduce``: gloo takes CUDA tensors
 for ``broadcast`` and ``all_reduce`` only, and a world of two ranks on one
@@ -116,6 +117,28 @@ def all_gather_rows(t: torch.Tensor, group=None) -> torch.Tensor:
     buf[dist.get_rank(group)] = t
     dist.all_reduce(buf, group=group)
     return buf.reshape(-1, *t.shape[1:])
+
+
+def all_gather_slices(t: torch.Tensor, axis: int, group) -> torch.Tensor:
+    """Every rank's block ``t`` of a tensor, concatenated along ``axis`` in
+    the group's rank order (all_gather_rows along that axis), contiguous."""
+    if axis == 0:
+        return all_gather_rows(t, group)
+    return all_gather_rows(t.movedim(axis, 0), group).movedim(0, axis).contiguous()
+
+
+def mesh_groups(mesh) -> tuple:
+    """(data group, model group) of this rank on ``mesh`` (parallel/mesh.py
+    ``Mesh``): the ranks that share its ``m``, which hold the same blocks
+    of the state and different rows, and the ranks that share its ``d``,
+    which hold the same rows and together the whole state. Every rank
+    creates every group, in the same order (``new_group`` is a collective
+    of the world). With ``model`` 1: the world and no model group."""
+    if mesh.model == 1:
+        return dist.group.WORLD, None
+    data = [dist.new_group([d * mesh.model + m for d in range(mesh.data)]) for m in range(mesh.model)]
+    model = [dist.new_group([d * mesh.model + m for m in range(mesh.model)]) for d in range(mesh.data)]
+    return data[mesh.m], model[mesh.d]
 
 
 def free_port() -> int:

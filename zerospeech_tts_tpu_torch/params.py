@@ -57,6 +57,14 @@ _TO_TORCH = {2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1)}
 _TO_FLAX = {2: (1, 0), 3: (2, 1, 0), 4: (2, 3, 1, 0)}
 
 
+def flax_last_axis(key: str, ndim: int) -> int:
+    """The torch axis of state-dict entry ``key`` (``ndim`` dims) that is
+    the last axis of its flax layout: torch dim 0 (the output axis) of a
+    Conv/Linear ``weight``, the last dim of a leaf kept in flax layout
+    (GRU ``wh``, the speaker embedding)."""
+    return _TO_FLAX[ndim][-1] if key.rsplit(".", 1)[-1] == "weight" else ndim - 1
+
+
 def _to_state_dict(tree: dict) -> dict[str, torch.Tensor]:
     sd = {}
     for path, arr in flatten(_strip_params(tree)).items():

@@ -1,7 +1,8 @@
-"""One data-parallel training step of each kind against the single-process
-step on the same global batch.
+"""One multi-process training step of each kind (data-parallel, and
+tensor-parallel with ``--model M``) against the single-process step on the
+same global batch.
 
-    python -m zerospeech_tts_tpu_torch.tools.dp_parity [--world 2] [--device cuda|cpu] \
+    python -m zerospeech_tts_tpu_torch.tools.dp_parity [--world 2] [--model 1] [--device cuda|cpu] \
         [--backend gloo|nccl] [--local-ranks 0 0] [--seed S] [--out FILE]
 
 The steps: ``pretrain_AE`` without and with the same-utterance pair (whose
@@ -9,24 +10,33 @@ offsets differ across the ranks' rows, so each rank has its own count of
 valid frames), ``pretrain_C``, ``train``, ``patch_d`` and ``patch_g`` (the
 stage-2 target draw over the global batch). Each starts from one state.
 ``world`` processes are launched with torchrun's variables
-(``parallel.launch``); every rank runs the single-process step on the
-global batch first (rank 0 keeps it as the reference), recording its
-random draws, then the data-parallel step on its rows with its slice of
-those draws (``FedNoise``). Rank 0 reports, per step and updated module,
-the rel-L2 of its gradient (after the clip) and of its updated parameters
-against the reference, the relative difference of the gradient's norm
-before the clip (``Solver.grad_norms``), the parameters' largest absolute
-difference, the metrics' relative differences, and whether every rank
-holds the same updated parameters bit for bit. ``failures`` holds a
-report to its bars (exit 1 when one is missed).
+(``parallel.launch``) as a mesh of data = world / model x model; every
+rank runs the single-process step on the global batch first (rank 0 keeps
+it as the reference), recording its random draws, then the multi-process
+step on its data rank's rows with its slice of those draws (``FedNoise``),
+from the state placed on the mesh (``--model`` above 1: each rank keeps
+its blocks of the large parameters and their moments). Rank 0 reports,
+per step and updated module, the rel-L2 of its gradient (after the clip)
+and of its updated parameters against the reference (both whole: blocks
+gathered over the model group), the relative difference of the gradient's
+norm before the clip (``Solver.grad_norms``), the parameters' largest
+absolute difference, the metrics' relative differences, and whether the
+ranks hold what they should bit for bit (every rank of a data group the
+same parameters or blocks, every rank of a model group the same whole
+leaves). ``failures`` holds a report to its bars (exit 1 when one is
+missed). On a card each rank also reports its resident bytes
+(``torch.cuda.memory_allocated``) of the placed state and of a world-1
+state, after building and after a step of each kind, beside the
+``device0_bytes`` counts (``MEMORY_KEYS``).
 
 A case (``make_case``: seeded modules at the hps's width, with Adam
 moments that are not zero, and a random batch; or one a test builds, with
 JAX's draws) is handed to the ranks in a file. Device ``cuda`` with two
 ranks on one card needs ``--backend gloo`` and ``--local-ranks 0 0`` (NCCL
-refuses two ranks on one device). ``run(control=True)`` plants a fault,
-the gradient all_reduce without its division by the world size, to show
-that the bars catch a gradient of the wrong scale.
+refuses two ranks on one device). ``run(control=True)`` plants a fault:
+at ``model`` 1 the gradient all_reduce without its division by the world
+size (a gradient of the wrong scale); above 1, each rank stepping its
+blocks with the next model rank's block of the gradient (blocks swapped).
 """
 
 from __future__ import annotations
@@ -41,6 +51,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from zerospeech_tts_tpu_torch.parallel.mesh import MIN_SIZE
+
 # (name, Solver method, batch keys it takes)
 STEPS = (
     ("pretrain_AE", "step_pretrain_ae", ("x", "spk")),
@@ -50,6 +62,8 @@ STEPS = (
     ("patch_d", "step_patch_d", ("x", "spk", "x_real", "spk_real")),
     ("patch_g", "step_patch_g", ("x", "spk", "x_real", "spk_real")),
 )
+READINGS = ("world1_built", "world1_after_steps", "placed", "placed_after_steps")
+MEMORY_KEYS = READINGS + tuple(f"{k}_requested" for k in READINGS) + ("count", "count_world1")
 BAR = 1e-5  # relative, f32 summation order: updated parameters, gradients and their norms
 UPDATES = {"step_pretrain_ae": ("enc", "dec"), "step_pretrain_clf": ("clf",),
            "step_train": ("clf", "enc", "dec"), "step_patch_d": ("dis",), "step_patch_g": ("dec",)}
@@ -133,16 +147,97 @@ def _slice_draw(d: np.ndarray, b_global: int, rows: slice) -> np.ndarray:
     return np.concatenate([d[j * b_global:][rows] for j in range(d.shape[0] // b_global)])
 
 
+def _same_on_ranks(t: torch.Tensor, group) -> bool:
+    """True when every rank of ``group`` holds ``t`` bit for bit."""
+    hi, lo = t.clone(), t.clone()
+    torch.distributed.all_reduce(hi, op=torch.distributed.ReduceOp.MAX, group=group)
+    torch.distributed.all_reduce(lo, op=torch.distributed.ReduceOp.MIN, group=group)
+    return bool(torch.equal(hi, lo))
+
+
+def resident(dev: torch.device) -> tuple[int, int]:
+    """The bytes of the tensors alive on ``dev``: ``memory_allocated`` and
+    the allocator's ``requested_bytes``, read from an emptied cache. A
+    block freed while another stream still used it (gloo and NCCL record
+    their streams on a collective's tensors) leaves ``memory_allocated``
+    at once but stays in ``requested_bytes`` until the allocator sees its
+    stream's event done, at its next allocation or at ``empty_cache``;
+    emptying the cache first releases every such block."""
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    return (torch.cuda.memory_allocated(dev),
+            torch.cuda.memory_stats(dev).get("requested_bytes.all.current", 0))
+
+
+def _memory(case, hps, dev, mesh, group, data_group, model_group, min_size, rows) -> list[float]:
+    """This rank's resident bytes (``MEMORY_KEYS``): a world-1 state built
+    from the case, after it is built and after one step of each kind on
+    the global batch; the same state placed on the mesh, after it is placed
+    and after one step of each kind on its rows; each as
+    ``torch.cuda.memory_allocated`` (the allocator's blocks) and as the
+    bytes the tensors requested (``requested_bytes``, the blocks less
+    their rounding), from an emptied cache (so no block cached by earlier
+    work is handed out larger than asked); then the counts of
+    ``device0_bytes`` over the whole state (params and Adam moments) on
+    the mesh and at world 1."""
+    import gc
+
+    from zerospeech_tts_tpu_torch.models.layers import Noise
+    from zerospeech_tts_tpu_torch.parallel.mesh import Mesh, device0_bytes, place_state, state_tree
+    from zerospeech_tts_tpu_torch.train.solver import Solver
+
+    def reading():
+        gc.collect()
+        return resident(dev)
+
+    out = []
+    for placed in (False, True):
+        base = reading()
+        st = _state(case, hps, dev)
+        if placed:
+            place_state(st, mesh, model_group, min_size)
+            solver = Solver(hps, group=group, data_group=data_group)
+        else:
+            tree, solver = state_tree(st), Solver(hps)
+            counts = [device0_bytes(tree, mesh, min_size)[0], device0_bytes(tree, Mesh())[0]]
+            del tree
+        out.append([x - b for x, b in zip(reading(), base)])
+        noise = Noise(torch.Generator().manual_seed(case["seed"]))  # the same draws on the ranks of a data row
+        for spec in case["steps"]:
+            getattr(solver, spec["fn"])(st, _tensors(spec["batch"], rows if placed else slice(None), dev), noise=noise)
+        del solver  # and its last gradient norms: the state alone is read
+        out.append([x - b for x, b in zip(reading(), base)])
+        del st
+    return [r[0] for r in out] + [r[1] for r in out] + counts
+
+
 def _worker(case_path: str, out_path: str, device: str, backend: str | None, results: bool,
-            control: bool) -> None:
+            control: bool, model: int, min_size: int) -> None:
     from zerospeech_tts_tpu_torch.config import Hps
     from zerospeech_tts_tpu_torch.models.layers import FedNoise, Noise
     from zerospeech_tts_tpu_torch.parallel import distributed
-    from zerospeech_tts_tpu_torch.parallel.mesh import batch_slice
+    from zerospeech_tts_tpu_torch.parallel.distributed import all_gather_slices
+    from zerospeech_tts_tpu_torch.parallel.mesh import (
+        Mesh, ModelShards, batch_slice, replicate_state, shard, shard_state,
+    )
     from zerospeech_tts_tpu_torch.train.solver import Solver
 
     distributed.initialize(device=device, backend=backend)
-    if control:  # the planted fault: the gradient all_reduce without its division by the world size
+    kept = {}  # each module's gradient blocks of the tensor-parallel step, which the step frees
+    set_grads = ModelShards.set_grads
+
+    def keeping(self, n, gs, scale):
+        if control:  # the planted fault: each rank steps its block with the next rank's block of the gradient
+            m = self.mesh
+            other = Mesh(m.data, m.model, m.d * m.model + (m.m + 1) % m.model)
+            for master, g, ax in zip(self.masters[n], gs, self.axes[n]):
+                master.grad = shard(g, ax, other) * scale
+        else:
+            set_grads(self, n, gs, scale)
+        kept[n] = [mm.grad for mm in self.masters[n]]
+
+    ModelShards.set_grads = keeping
+    if control and model == 1:  # the planted fault: the gradient all_reduce without its division by the world size
         def summed(self, flat):
             torch.distributed.all_reduce(flat, group=self.group)
             return flat
@@ -151,62 +246,90 @@ def _worker(case_path: str, out_path: str, device: str, backend: str | None, res
     try:
         dev = distributed.local_device(device)
         rank, world = distributed.rank(), distributed.world()
+        mesh = Mesh(world // model, model, rank)
         group = torch.distributed.group.WORLD
+        data_group, model_group = distributed.mesh_groups(mesh)
         case = torch.load(case_path, weights_only=False, map_location="cpu")
         hps = Hps(**case["hps"])
         b = hps.batch_size
-        rows = batch_slice(rank, world, b)
+        rows = batch_slice(mesh.d, mesh.data, b)
         report, saved = {}, {}
         for spec in case["steps"]:
             fn, mods = spec["fn"], UPDATES[spec["fn"]]
             ref = _state(case, hps, dev)
             noise = (FedNoise(spec["draws"]) if spec["draws"] is not None
                      else _Recorder(Noise(torch.Generator().manual_seed(case["seed"]))))
-            s_ref, s_dp = Solver(hps), Solver(hps, group=group)
+            s_ref, s_dp = Solver(hps), Solver(hps, group=group, data_group=data_group)
             m_ref = getattr(s_ref, fn)(ref, _tensors(spec["batch"], slice(None), dev), noise=noise)
             draws = spec["draws"] if spec["draws"] is not None else noise.draws
             st = _state(case, hps, dev)
+            if model > 1:
+                shard_state(st, mesh, model_group, min_size)
+            kept.clear()
             fed = FedNoise([_slice_draw(d, b, rows) for d in draws])
             m_dp = getattr(s_dp, fn)(st, _tensors(spec["batch"], rows, dev), noise=fed)
             if fed.arrays:
                 raise RuntimeError(f"{spec['name']}: {len(fed.arrays)} draws not used")
-            flat = torch.cat([p.detach().reshape(-1) for n in mods for p in st.modules[n].parameters()])
-            hi, lo = flat.clone(), flat.clone()
-            torch.distributed.all_reduce(hi, op=torch.distributed.ReduceOp.MAX, group=group)
-            torch.distributed.all_reduce(lo, op=torch.distributed.ReduceOp.MIN, group=group)
+            masters = {n: list(st.modules[n].parameters()) if st.shards is None else st.shards.masters[n]
+                       for n in st.modules}
+            # the ranks of a data group hold the same blocks; those of a model group the same whole leaves
+            same = _same_on_ranks(torch.cat([p.detach().reshape(-1) for n in mods for p in masters[n]]), data_group)
+            if st.shards is not None:
+                same &= _same_on_ranks(torch.cat([p.detach().reshape(-1) for n in mods
+                                                  for p, ax in zip(masters[n], st.shards.axes[n]) if ax is None]),
+                                       model_group)
+            same = torch.tensor(float(same), device=dev)  # NCCL reduces device tensors only
+            torch.distributed.all_reduce(same, op=torch.distributed.ReduceOp.MIN, group=group)
+            if st.shards is None:
+                grads = {n: [p.grad for p in masters[n]] for n in mods}
+            else:  # the blocks gathered over the model group; then the state made whole again
+                grads = {n: [g if ax is None else all_gather_slices(g, ax, model_group)
+                             for g, ax in zip(kept[n], st.shards.axes[n])] for n in mods}
+                replicate_state(st)
+            params = {n: list(st.modules[n].parameters()) for n in st.modules}
             if rank:
                 continue
-            r = dict(ranks_equal=bool(torch.equal(hi, lo)), metrics_rel={}, grad_rel_l2={}, grad_norm_rel={},
+            r = dict(ranks_equal=bool(same), metrics_rel={}, grad_rel_l2={}, grad_norm_rel={},
                      param_max_abs={}, param_rel={}, untouched_equal=True)
             for k in m_ref:
                 a, e = float(m_dp[k]), float(m_ref[k])
                 r["metrics_rel"][k] = abs(a - e) / max(abs(e), 1e-6)
             for n in mods:
-                pairs = list(zip(st.modules[n].parameters(), ref.modules[n].parameters()))
-                g_dp = torch.cat([p.grad.reshape(-1) for p, _ in pairs])
-                g_ref = torch.cat([q.grad.reshape(-1) for _, q in pairs])
+                refs = list(ref.modules[n].parameters())
+                g_dp = torch.cat([g.reshape(-1) for g in grads[n]])
+                g_ref = torch.cat([q.grad.reshape(-1) for q in refs])
                 r["grad_rel_l2"][n] = (torch.linalg.norm(g_dp - g_ref) / torch.linalg.norm(g_ref)).item()
                 r["grad_norm_rel"][n] = ((s_dp.grad_norms[n] - s_ref.grad_norms[n]).abs()
                                          / s_ref.grad_norms[n]).item()
-                p_dp = torch.cat([p.detach().reshape(-1) for p, _ in pairs])
-                p_ref = torch.cat([q.detach().reshape(-1) for _, q in pairs])
+                p_dp = torch.cat([p.detach().reshape(-1) for p in params[n]])
+                p_ref = torch.cat([q.detach().reshape(-1) for q in refs])
                 r["param_max_abs"][n] = (p_dp - p_ref).abs().max().item()
                 r["param_rel"][n] = (torch.linalg.norm(p_dp - p_ref) / torch.linalg.norm(p_ref)).item()
             for n in set(st.modules) - set(mods):
-                r["untouched_equal"] &= all(torch.equal(p, q) for p, q in
-                                            zip(st.modules[n].parameters(), ref.modules[n].parameters()))
+                r["untouched_equal"] &= all(torch.equal(p, q) for p, q in zip(params[n], ref.modules[n].parameters()))
             report[spec["name"]] = r
             if not results:
                 continue
+            names = {n: [k for k, _ in st.modules[n].named_parameters()] for n in mods}
             saved[spec["name"]] = {
-                side: dict(metrics={k: float(v) for k, v in m.items()},
-                           grads={n: {k: p.grad.cpu() for k, p in s.modules[n].named_parameters()} for n in mods},
-                           params={n: {k: p.detach().cpu() for k, p in s.modules[n].named_parameters()}
-                                   for n in mods})
-                for side, s, m in (("dp", st, m_dp), ("ref", ref, m_ref))}
+                "dp": dict(metrics={k: float(v) for k, v in m_dp.items()},
+                           grads={n: {k: g.cpu() for k, g in zip(names[n], grads[n])} for n in mods},
+                           params={n: {k: p.detach().cpu() for k, p in zip(names[n], params[n])} for n in mods}),
+                "ref": dict(metrics={k: float(v) for k, v in m_ref.items()},
+                            grads={n: {k: p.grad.cpu() for k, p in ref.modules[n].named_parameters()} for n in mods},
+                            params={n: {k: p.detach().cpu() for k, p in ref.modules[n].named_parameters()}
+                                    for n in mods})}
+        ref = st = params = grads = masters = None
+        kept.clear()
+        ModelShards.set_grads = set_grads
+        memory = None
+        if dev.type == "cuda" and not control:
+            mine = _memory(case, hps, dev, mesh, group, data_group, model_group, min_size, rows)
+            every = distributed.all_gather_rows(torch.tensor([mine], dtype=torch.float64, device=dev), group)
+            memory = [dict(zip(MEMORY_KEYS, map(int, row.tolist()))) for row in every]
         if rank == 0:
-            torch.save(dict(report=report, results=saved, world=world, device=str(dev),
-                            backend=torch.distributed.get_backend(group)), out_path)
+            torch.save(dict(report=report, results=saved, world=world, data=mesh.data, model=model,
+                            device=str(dev), backend=torch.distributed.get_backend(group), memory=memory), out_path)
     finally:
         distributed.destroy()
 
@@ -232,20 +355,24 @@ def failures(report: dict, metrics_bar: float = 1e-4) -> list[str]:
 
 
 def run(case: dict, world: int = 2, device: str = "cuda", backend: str | None = None, local_ranks=None,
-        timeout: float = 600.0, results: bool = False, env: dict | None = None, control: bool = False) -> dict:
+        timeout: float = 600.0, results: bool = False, env: dict | None = None, control: bool = False,
+        model: int = 1, min_size: int = MIN_SIZE) -> dict:
     """Launch ``world`` ranks on ``case`` (``env``: their environment,
-    default this process's); rank 0's report ({step: ...}, the world,
-    device and backend), and with ``results`` each step's metrics,
-    gradients and updated parameters, data-parallel ("dp") and reference
-    ("ref"), on the CPU. ``control`` plants the fault of the module's
-    docstring in the data-parallel steps. Raises when a rank fails."""
+    default this process's) as a mesh of data = world / model x ``model``
+    (the rule's ``min_size``); rank 0's report ({step: ...}, the world,
+    mesh, device and backend, and on a card each rank's ``memory``), and
+    with ``results`` each step's metrics, gradients and updated parameters
+    (whole), multi-process ("dp") and reference ("ref"), on the CPU.
+    ``control`` plants the fault of the module's docstring in the
+    multi-process steps. Raises when a rank fails."""
     from zerospeech_tts_tpu_torch.parallel.distributed import launch
 
     with tempfile.TemporaryDirectory(prefix="dp_parity") as tmp:
         case_path, out_path = str(Path(tmp) / "case.pt"), str(Path(tmp) / "out.pt")
         torch.save(case, case_path)
         outs = launch(["-m", "zerospeech_tts_tpu_torch.tools.dp_parity", "--worker", case_path, out_path,
-                       "--device", device] + (["--backend", backend] if backend else [])
+                       "--device", device, "--model", str(model), "--min-size", str(min_size)]
+                      + (["--backend", backend] if backend else [])
                       + (["--results"] if results else []) + (["--control"] if control else []),
                       world, env=env, local_ranks=local_ranks, timeout=timeout)
         for r, (rc, _, err) in enumerate(outs):
@@ -260,6 +387,8 @@ def run(case: dict, world: int = 2, device: str = "cuda", backend: str | None = 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--world", type=int, default=2)
+    ap.add_argument("--model", type=int, default=1, help="the mesh's model axis (world = data x model)")
+    ap.add_argument("--min-size", type=int, default=MIN_SIZE, help=argparse.SUPPRESS)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--backend", default=None, help="default: NCCL on cuda, gloo on cpu")
     ap.add_argument("--local-ranks", type=int, nargs="+", default=None,
@@ -271,12 +400,13 @@ def main(argv=None) -> dict:
     ap.add_argument("--control", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker:
-        _worker(*args.worker, args.device, args.backend, args.results, args.control)
+        _worker(*args.worker, args.device, args.backend, args.results, args.control, args.model, args.min_size)
         return {}
     from zerospeech_tts_tpu_torch.config import DEFAULT_HPS_PATH, load_configs
 
     hps, _ = load_configs(DEFAULT_HPS_PATH)
-    out = run(make_case(hps, args.seed, args.device), args.world, args.device, args.backend, args.local_ranks)
+    out = run(make_case(hps, args.seed, args.device), args.world, args.device, args.backend, args.local_ranks,
+              model=args.model)
     for name, r in out["report"].items():
         print(f"{name}: grad rel-L2 " + " ".join(f"{n}={v:.2e}" for n, v in r["grad_rel_l2"].items())
               + "; norm rel " + " ".join(f"{n}={v:.2e}" for n, v in r["grad_norm_rel"].items())

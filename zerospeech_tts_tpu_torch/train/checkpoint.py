@@ -14,8 +14,11 @@ Data-parallel runs: rank 0 alone creates the directory and writes
 each save (and after the directory is set up), so no rank reads a step
 before it is whole. Every rank restores the same file, as the JAX
 package's restore does. The generator saved is rank 0's; on restore the
-other ranks re-derive theirs from (seed, rank, restored step)
-(``TrainState.reseed``).
+other data ranks re-derive theirs from (seed, data rank, restored step)
+(``TrainState.reseed``). Tensor-parallel states are saved whole (every
+rank gathers its model group's blocks, rank 0 writes: the file is the
+world-1 format) and restored into their blocks (JAX restores into the
+sharded template), so a checkpoint resumes under any mesh.
 """
 
 from __future__ import annotations
@@ -83,20 +86,22 @@ class CheckpointManager:
 
     def save(self, state) -> None:
         """Save at the state's step (a step that exists is overwritten),
-        then drop all but the newest ``max_to_keep`` steps (data-parallel:
-        rank 0 writes, every rank waits for it)."""
+        then drop all but the newest ``max_to_keep`` steps (multi-process:
+        every rank makes the whole state dicts, rank 0 writes, every rank
+        waits for it)."""
         if self.read_only:
             raise RuntimeError(f"checkpoint dir {self.path} is read-only")
+        modules, opts = state.whole_state_dicts()
         if is_primary():
-            self._write(state)
+            self._write(state, modules, opts)
         barrier()
 
-    def _write(self, state) -> None:
+    def _write(self, state, modules: dict, opts: dict) -> None:
         payload = {
             "step": state.step,
             "train_start": state.train_start,
-            "modules": {n: m.state_dict() for n, m in state.modules.items()},
-            "opts": {n: o.state_dict() for n, o in state.opts.items()},
+            "modules": modules,
+            "opts": opts,
             "gen": state.gen.get_state(),
         }
         tmp = self._file(state.step).with_suffix(f".tmp{os.getpid()}")
@@ -107,18 +112,15 @@ class CheckpointManager:
 
     def restore(self, state, step: int | None = None):
         """Load a saved step (default the latest) into ``state`` (from
-        solver.init_state with the same hps), strictly: a checkpoint of
-        another architecture raises."""
+        solver.init_state with the same hps, placed or not), strictly: a
+        checkpoint of another architecture raises."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoint found in {self.path}")
         if not self._file(step).exists():
             raise FileNotFoundError(f"step {step} not in {self.path} (available: {self.all_steps()})")
         payload = torch.load(self._file(step), map_location=state.device, weights_only=True)
-        for n, m in state.modules.items():
-            m.load_state_dict(payload["modules"][n])
-        for n, o in state.opts.items():
-            o.load_state_dict(payload["opts"][n])
+        state.load_whole_state_dicts(payload["modules"], payload["opts"])
         state.step = int(payload["step"])
         state.train_start = int(payload["train_start"])
         if state.rank == 0:

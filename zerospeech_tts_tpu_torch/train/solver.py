@@ -15,7 +15,8 @@ module's gradient by min(1, max / ||g||) with that module's norm alone.
 Steps run eagerly; every random draw (dropout, Gumbel noise, stage-2 target
 speakers, penalty mixes) comes from a noise source (models/layers.py),
 by default the state's generator, so a test can feed JAX's draws.
-Each step leaves the (clipped) gradients in the parameters' ``.grad``.
+Each step leaves the (clipped) gradients in the parameters' ``.grad``
+(tensor-parallel: it frees them).
 
 Batches come from a ``DeviceDataset`` (sampled on the device with the
 state's generator) or from any iterator of batch dicts, such as the host
@@ -37,7 +38,21 @@ global batch: the stage-2 target draw indexes the gathered ``spk_real``;
 the pair term's masked mean divides by the global count of valid frames,
 and its hinge acts on the global separation; the returned metrics are
 means over the ranks (so ``check_numerics`` raises on every rank
-together). Each rank's generator is seeded from (seed, rank).
+together). Each rank's generator is seeded from (seed, data rank).
+
+Tensor-parallel steps (``--mesh data=D,model=M``, a state placed by
+``parallel.mesh.shard_state``): the M ranks of a data row step on the same
+rows with the same draws, and each keeps between steps its block of every
+sharded parameter and of its Adam moments. A step gathers the whole
+weights of a module when it first reads it (``TrainState.module``); the
+gradient all_reduce stays one a module over the world (so every rank holds
+the same whole gradient, and each module's clip norm is the norm of the
+logical gradient on every rank); each rank then takes its block of a
+sharded leaf's gradient and its Adam steps the blocks; an updated module's
+whole weights and the gradients are freed, and so is every gathered module
+when the step ends. The collectives that read rows (target draw, pair
+term, metrics) run over the data group (``Solver(data_group=)``), which
+holds one rank of each data row.
 """
 
 from __future__ import annotations
@@ -59,7 +74,9 @@ PAIR_SEP_MARGIN = 0.2  # min mean |z_t - z_{t+n/2}|: anti-collapse floor of the 
 class TrainState:
     """Step counters, the four modules, their Adam optimizers and the
     generator every draw comes from (all on one device). ``seed`` and
-    ``rank`` say where the generator comes from (``reseed``)."""
+    ``rank`` (the data rank) say where the generator comes from
+    (``reseed``). ``shards`` is None, or the tensor-parallel placement
+    (``parallel.mesh.ModelShards``), whose blocks the optimizers step."""
 
     def __init__(self, hps: Hps, modules: dict, gen: torch.Generator, seed: int | None = None,
                  rank: int = 0):
@@ -73,12 +90,14 @@ class TrainState:
             for name, m in modules.items()
         }
         self.gen = gen
+        self.shards = None
 
     def reseed(self, step: int = 0) -> None:
-        """Seed the generator: rank 0 from seed + 1 (a single process's
-        seed), a data-parallel rank above 0 from (seed, rank, step). A
-        checkpoint holds rank 0's generator alone, so a resume at ``step``
-        restores it on rank 0 and reseeds every other rank here."""
+        """Seed the generator: data rank 0 from seed + 1 (a single
+        process's seed), a data rank above 0 from (seed, rank, step), so
+        the ranks of one data row draw alike. A checkpoint holds rank 0's
+        generator alone, so a resume at ``step`` restores it on data rank 0
+        and reseeds every other data rank here."""
         if self.rank == 0:
             self.gen.manual_seed(int(self.seed) + 1)
         else:
@@ -89,10 +108,44 @@ class TrainState:
     def device(self) -> torch.device:
         return next(self.modules["enc"].parameters()).device
 
-    enc = property(lambda self: self.modules["enc"])
-    dec = property(lambda self: self.modules["dec"])
-    clf = property(lambda self: self.modules["clf"])
-    dis = property(lambda self: self.modules["dis"])
+    def module(self, name: str) -> torch.nn.Module:
+        """Module ``name`` with its whole weights (tensor-parallel: gathered
+        for the running step when it first reads them)."""
+        if self.shards is not None:
+            self.shards.gather(self, name)
+        return self.modules[name]
+
+    enc = property(lambda self: self.module("enc"))
+    dec = property(lambda self: self.module("dec"))
+    clf = property(lambda self: self.module("clf"))
+    dis = property(lambda self: self.module("dis"))
+
+    def end_step(self) -> None:
+        """Count the step; tensor-parallel, free the weights it gathered."""
+        self.step += 1
+        if self.shards is not None:
+            for n in list(self.shards.whole):
+                self.shards.release(self, n)
+
+    def whole_state_dicts(self) -> tuple[dict, dict]:
+        """({module: state dict}, {module: Adam state dict}) with every
+        tensor whole: tensor-parallel, gathered over the model group (every
+        rank of it calls this)."""
+        if self.shards is not None:
+            return self.shards.whole_state_dicts(self)
+        return ({n: m.state_dict() for n, m in self.modules.items()},
+                {n: o.state_dict() for n, o in self.opts.items()})
+
+    def load_whole_state_dicts(self, modules: dict, opts: dict) -> None:
+        """Load whole state dicts (a checkpoint's) strictly; tensor-parallel,
+        each rank keeps its blocks."""
+        if self.shards is not None:
+            self.shards.load(self, modules, opts)
+            return
+        for n, m in self.modules.items():
+            m.load_state_dict(modules[n])
+        for n, o in self.opts.items():
+            o.load_state_dict(opts[n])
 
 
 def init_state(hps: Hps, seed: int | None = None, device: str | torch.device = "cuda",
@@ -118,13 +171,17 @@ def _acc(logits, labels):
 
 
 class Solver:
-    def __init__(self, hps: Hps, check_numerics: bool = False, group=None):
-        """``group``: the process group of a data-parallel run (e.g.
-        ``torch.distributed.group.WORLD``), each rank stepping on its rows
-        of the global batch; None steps on the whole batch alone."""
+    def __init__(self, hps: Hps, check_numerics: bool = False, group=None, data_group=None):
+        """``group``: the process group of a multi-process run (e.g.
+        ``torch.distributed.group.WORLD``), over which each module's
+        gradient is averaged; ``data_group`` (default ``group``): the ranks
+        that hold one data row each, over which the collectives that read
+        rows run (tensor-parallel: ``distributed.mesh_groups``). None steps
+        on the whole batch alone."""
         self.hps = hps
         self.check_numerics = check_numerics
         self.group = group
+        self.data_group = group if data_group is None else data_group
         self.grad_norms: dict[str, torch.Tensor] = {}  # each module's last gradient norm (before clipping)
 
     # ------------------------------------------------------- shared pieces
@@ -141,7 +198,10 @@ class Solver:
     def _update(self, state, names, loss) -> None:
         """Gradients of ``loss`` for each module in ``names``, each clipped
         by its own global norm (optax: g * max / ||g|| when ||g|| >= max)
-        and left in ``.grad``; then one Adam step per module."""
+        and left in ``.grad``; then one Adam step per module.
+        Tensor-parallel, the masters' ``.grad`` take their blocks, and
+        after the Adam step the module's gathered weights and the
+        gradients are freed."""
         params = {n: list(state.modules[n].parameters()) for n in names}
         grads = iter(torch.autograd.grad(loss, [p for n in names for p in params[n]]))
         mx = self.hps.max_grad_norm
@@ -153,10 +213,15 @@ class Solver:
             norm = torch.sqrt(sum((g * g).sum() for g in gs))
             self.grad_norms[n] = norm
             scale = torch.where(norm < mx, torch.ones_like(norm), mx / norm)
-            for p, g in zip(params[n], gs):
-                p.grad = g * scale
+            if state.shards is None:
+                for p, g in zip(params[n], gs):
+                    p.grad = g * scale
+            else:
+                state.shards.set_grads(n, gs, scale)
         for n in names:
             state.opts[n].step()
+            if state.shards is not None:
+                state.shards.release(state, n)
 
     def _grad_mean(self, flat: torch.Tensor) -> torch.Tensor:
         """A module's flattened gradient, averaged over the ranks in place."""
@@ -196,10 +261,10 @@ class Solver:
         # mean, and the hinge is open where the global separation is under
         # the margin, so the mean over ranks has the single-process value
         # and gradient
-        world = dist.get_world_size(self.group)
+        world = dist.get_world_size(self.data_group)
         count_g = count.detach().clone()
-        dist.all_reduce(count_g, group=self.group)
-        sep_g = all_reduce_mean_(sep.detach().clone(), self.group)
+        dist.all_reduce(count_g, group=self.data_group)
+        sep_g = all_reduce_mean_(sep.detach().clone(), self.data_group)
         return l_sum * world / (count_g + 1e-8) + (PAIR_SEP_MARGIN - sep) * (sep_g < PAIR_SEP_MARGIN)
 
     def _has_pair(self, batch) -> bool:
@@ -226,7 +291,7 @@ class Solver:
             loss = loss + h.lambda_pair * l_pair
             metrics["loss_pair"] = l_pair
         self._update(state, ("enc", "dec"), loss)
-        state.step += 1
+        state.end_step()
         return self._metrics(metrics)
 
     def step_pretrain_clf(self, state: TrainState, batch: dict, noise=None) -> dict:
@@ -237,7 +302,7 @@ class Solver:
         logits = state.clf(z, train=True, noise=noise)
         l_clf = h.alpha_dis * F.cross_entropy(logits, batch["spk"])
         self._update(state, ("clf",), l_clf)
-        state.step += 1
+        state.end_step()
         return self._metrics({"loss_clf": l_clf, "acc_clf": _acc(logits.detach(), batch["spk"])})
 
     def step_train(self, state: TrainState, batch: dict, noise=None) -> dict:
@@ -272,7 +337,7 @@ class Solver:
             loss = loss + h.lambda_pair * l_pair
             metrics["loss_pair"] = l_pair
         self._update(state, ("enc", "dec"), loss)
-        state.step += 1
+        state.end_step()
         out = self._metrics(metrics)
         out["alpha"] = torch.tensor(alpha)
         return out
@@ -282,19 +347,20 @@ class Solver:
     def _target_speakers(self, spk_real, noise):
         """Targets drawn uniformly, with replacement, from the real labels
         of the global batch (data-parallel: every rank's ``spk_real``,
-        gathered; each rank draws its own rows' indices)."""
+        gathered over the data group; each rank draws its own rows'
+        indices)."""
         n = spk_real.shape[0]
-        pool = spk_real if self.group is None else all_gather_rows(spk_real, self.group)
+        pool = spk_real if self.group is None else all_gather_rows(spk_real, self.data_group)
         u = noise.uniform((n,), spk_real.device)
         return pool[(u * pool.shape[0]).long().clamp(max=pool.shape[0] - 1)]
 
     def _metrics(self, metrics: dict) -> dict:
-        """Detached metrics; data-parallel, each the mean over the ranks
-        (one all_reduce)."""
+        """Detached metrics; data-parallel, each the mean over the data
+        group (one all_reduce)."""
         out = {k: v.detach() for k, v in metrics.items()}
         if self.group is None:
             return out
-        vals = all_reduce_mean_(torch.stack([v.float() for v in out.values()]), self.group)
+        vals = all_reduce_mean_(torch.stack([v.float() for v in out.values()]), self.data_group)
         return dict(zip(out, vals.unbind()))
 
     def step_patch_d(self, state: TrainState, batch: dict, noise=None) -> dict:
@@ -319,7 +385,7 @@ class Solver:
         l_cls = F.cross_entropy(cls_real, spk_real)
         loss = h.beta_dis * (-w_dist) + h.lambda_ * gp + h.beta_clf * l_cls
         self._update(state, ("dis",), loss)
-        state.step += 1
+        state.end_step()
         return self._metrics({"loss_d": loss, "w_dist": w_dist, "grad_penalty": gp, "loss_d_cls": l_cls,
                               "acc_d_cls": _acc(cls_real.detach(), spk_real)})
 
@@ -339,7 +405,7 @@ class Solver:
         if h.beta_rec > 0:
             loss = loss + h.beta_rec * _abs(state.dec(z, batch["spk"]) - x_src).mean()
         self._update(state, ("dec",), loss)
-        state.step += 1
+        state.end_step()
         return self._metrics({"loss_g": loss, "loss_g_adv": l_adv, "loss_g_cls": l_cls})
 
     # -------------------------------------------------------- orchestration
