@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 1. Refuses to run without a CUDA card (or outside a checkout of the repo).
-2. Builds the hand-written kernels from their four csrc/ sources with nvcc
+2. Builds the hand-written kernels from their five csrc/ sources with nvcc
    (sm_90a) and the native wav reader (native/wav_reader.cpp, g++), all at
    once, and prints kernel 2's spread and the widest H whose columns of wh
    stay whole on chip in f32 and in bf16 (every shipped path's spread
@@ -266,7 +266,7 @@ def work(name: str, args, kw) -> tuple[float, float]:
         # a frame: window, rfft, |.|, mel product over the nonzeros, both dB-norms
         fl = b * t * (cfg.win_length + rfft_flops(cfg.n_fft) + 4 * nf + 2 * nnz + 5 * (nf + nm))
         return fl, 4 * (ypad.numel() + nnz + cfg.win_length + b * t * (nf + nm))
-    if name in ("gru", "gru_bf16"):  # bf16: 2-byte xw, wh, bh and ys (the f32 state is scratch)
+    if name in ("gru", "gru_bf16"):  # bf16: 2-byte xw, wh, bh and ys (the f32 state stays on chip)
         xw, wh, bh = args[:3]
         lengths = args[3] if len(args) > 3 else kw.get("lengths")
         b, t, h3 = xw.shape
@@ -580,10 +580,11 @@ def main() -> None:
     for dt in (torch.float32, torch.bfloat16):
         for b in (1, 2, 6, 16, 32, 64, 128, 192, 256):  # kernel 2: the paths' rows, the test shape, training's
             kc, n_k, nb, n_b, cb, smem, rows, wreg, hs, _ = gru.scan_plan(dev, b, 512, dt)
+            where = ("registers (mma fragments)" if wreg else "shared memory (mma fragments)") \
+                if dt == torch.bfloat16 else f"{'registers and ' if wreg else ''}shared memory"
             print(f"  gru {str(dt)[6:]} recurrence B={b} H=512: {n_k} column groups x {n_b} batch groups = "
                   f"{n_k * n_b} blocks of {kc} columns x {nb} rows ({cb} staged at a time), {smem} B dynamic "
-                  f"shared memory each, wh in {'registers and ' if wreg else ''}shared memory (Hs {hs}), "
-                  f"{rows} rows a launch")
+                  f"shared memory each, wh in {where} (Hs {hs}), {rows} rows a launch")
             check(hs == 512, f"gru {dt} B={b} H=512: the spread keeps {hs} of 512 rows of wh on chip")
     widest = {}
     for dt in (torch.float32, torch.bfloat16):  # the widest H whose columns stay whole (wider: wide mode)
@@ -1634,7 +1635,10 @@ def wide_h(dev) -> dict:
         err = hold_path_calls(name, calls, f"{name} wide H={h}")
         ms = cuda_ms(lambda: gru.gru_scan(xw, wh, bh), 5)
         plain_ms = cuda_ms(lambda: gru.gru_scan_plain(xw, wh, bh), 1)
-        l2_step = pack * xw.element_size() * n_b * -(-nb // cb) * -(-cb // 8)
+        # the blocks of a batch group read their packed share once per row
+        # block of a chunk (f32: 8 rows) or per m-tile of 16 rows (bf16)
+        l2_step = pack * xw.element_size() * n_b * (-(-nb // cb) * -(-cb // 8) if dt == torch.float32
+                                                     else -(-nb // 16))
         rows[f"{name} H={h}"] = dict(
             B=b, T=t, Hs=hs, spread=dict(kc=kc, NK=n_k, nb=nb, NB=n_b, cb=cb, smem=smem), max_abs_err=err,
             ms=ms, plain_ms=plain_ms, packed_bytes=pack * xw.element_size(), l2_bytes_a_step=l2_step,

@@ -150,22 +150,25 @@ def _hold_bf16(out, xw, wh, bh, lens=None, reverse=False):
     return diff.max().item(), diff.mean().item(), ctl.mean().item()
 
 
+# H = 200: K padded to 208 (a partial k-tile); H = 37: rows neither 16-byte
+# nor 4-byte aligned (staged and copied element by element)
+@pytest.mark.parametrize("h", [512, 200, 37])
 @pytest.mark.parametrize("t", [64, 512])
-@pytest.mark.parametrize("b", [1, 16, 64])
-def test_gru_bf16_kernel_matches_plain(cuda, b, t):
-    """Kernel 2's bf16 mode (bf16 xw, wh, bh and ys; f32 state) against
-    gru_scan_plain in bf16 at H = 512, forward and reverse masked with
-    ragged lengths: every element within one bf16 ulp at the top of the
-    GRU's range (2^-8), and the mean difference at most half the bf16-state
-    control's. Not bit for bit: the two sum each step's product in other
-    f32 orders, and once a state lying on a bf16 rounding boundary rounds
-    apart for the next product (after some tens of steps), the two
-    recurrences drift ~1e-4 apart and a share of ys rounds one ulp apart
-    (88-98% of the elements were equal on an H100). One launch a scan,
+@pytest.mark.parametrize("b", [1, 3, 16, 17, 33, 64])
+def test_gru_bf16_kernel_matches_plain(cuda, b, t, h):
+    """Kernel 2's bf16 mode (bf16 xw, wh, bh and ys; f32 state; the product
+    on the tensor cores) against gru_scan_plain in bf16, forward and
+    reverse masked with ragged lengths, at batches that pad the m-tiles of
+    16 rows (1, 3, 17, 33) and an H that is not a multiple of 16: every
+    element within one bf16 ulp at the top of the GRU's range (2^-8), and
+    the mean difference at most half the bf16-state control's. Not bit for
+    bit: the two sum each step's product in other f32 orders, and once a
+    state lying on a bf16 rounding boundary rounds apart for the next
+    product (after some tens of steps), the two recurrences drift ~1e-4
+    apart and a share of ys rounds one ulp apart. One launch a scan,
     counted apart from the f32 mode's."""
-    h = 512
     for reverse, masked in ((False, False), (True, True)):
-        xw, wh, bh, gen = _gru_inputs_typed(b, t, h, b * t + 7, cuda, torch.bfloat16)
+        xw, wh, bh, gen = _gru_inputs_typed(b, t, h, b * t + h + 7, cuda, torch.bfloat16)
         lens = torch.randint(1, t + 1, (b,), generator=gen, dtype=torch.int32).to(cuda) if masked else None
         before, before32 = gru.bf16_launches, gru.launches
         out = gru.gru_scan(xw, wh, bh, lens, reverse=reverse)
@@ -173,7 +176,29 @@ def test_gru_bf16_kernel_matches_plain(cuda, b, t):
         assert (gru.bf16_launches, gru.launches) == (before + 1, before32), (reverse, masked)
         assert out.dtype == torch.bfloat16 and out.shape == (b, t, h)
         got = _hold_bf16(out, xw, wh, bh, lens, reverse)
-        print(f"B={b} T={t} reverse={reverse}: max |diff| {got[0]:.3e}, mean {got[1]:.3e}, control's {got[2]:.3e}")
+        print(f"B={b} T={t} H={h} reverse={reverse}: max |diff| {got[0]:.3e}, mean {got[1]:.3e}, "
+              f"control's {got[2]:.3e}")
+
+
+@pytest.mark.parametrize("b", [128, 256])
+def test_gru_bf16_kernel_fragment_modes(cuda, b):
+    """Kernel 2's bf16 mode where its spread leaves the registers-and-one-
+    m-tile case of the conversion path (H = 512): at B = 128 the fragments
+    of wh sit in shared memory (12 n-tiles a block: two passes of the
+    accumulators), at B = 256 a block holds several m-tiles of 16 rows.
+    Each holds against the plain version as above, forward and reverse
+    masked, in one launch."""
+    t, h = 64, 512
+    kc, _, nb, _, _, _, rows, wreg = gru.scan_plan(cuda, b, h, torch.bfloat16)[:8]
+    assert rows == b and (wreg == 0 and 3 * kc > 64 if b == 128 else nb > 16), (b, kc, nb, rows, wreg)
+    for reverse, masked in ((False, False), (True, True)):
+        xw, wh, bh, gen = _gru_inputs_typed(b, t, h, b + reverse, cuda, torch.bfloat16)
+        lens = torch.randint(1, t + 1, (b,), generator=gen, dtype=torch.int32).to(cuda) if masked else None
+        before = gru.bf16_launches
+        out = gru.gru_scan(xw, wh, bh, lens, reverse=reverse)
+        torch.cuda.synchronize()
+        assert gru.bf16_launches == before + 1
+        _hold_bf16(out, xw, wh, bh, lens, reverse)
 
 
 WIDE_H = [(2048, torch.float32), (4096, torch.float32), (2304, torch.bfloat16)]

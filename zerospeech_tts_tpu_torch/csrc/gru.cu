@@ -1,8 +1,9 @@
 // Kernel 2: GRU recurrence, forward and (length-masked) reverse, in ONE
-// cooperative launch a scan, with xw, wh, bh and ys in f32 or in bf16.
+// cooperative launch a scan, with xw, wh, bh, ys and the state in f32.
 //
-// Replaces zerospeech_tts_tpu/ops/pallas_gru.py::pallas_gru_scan, in both
-// of its modes. Given the hoisted input projections xw = x Wi + bi
+// Replaces zerospeech_tts_tpu/ops/pallas_gru.py::pallas_gru_scan in its
+// f32 mode; its bf16 mode is a kernel of its own, csrc/gru_bf16.cu (the
+// product on the tensor cores). Given the hoisted input projections xw = x Wi + bi
 // [B, T, 3H] (a plain matmul outside the kernel), each step computes
 //     hw = h wh + bh;  r, z = sigmoid(x_{r,z} + hw_{r,z})
 //     n  = tanh(x_n + r * hw_n);  h' = (1 - z) n + z h
@@ -10,13 +11,11 @@
 // only) steps at t >= lengths[b] pass the state through, so each row's
 // first real step sees h0 = 0 exactly as an exact-length run does.
 //
-// bf16 mode (zs_gru_scan_bf16; pallas_gru.py:14-17, :141-146, :160): xw,
-// wh, bh and ys are bf16; the state stays f32 for the whole scan, each
-// step's product takes h rounded to bf16 (exact products, f32 sums), the
-// gates run in f32, and ys gets h_t rounded to bf16. Because ys no longer
-// carries the f32 state, the blocks pass h_t to each other through a
-// second buffer, `state` [2][B][H] f32 (step s writes half s & 1 and reads
-// the other), and never round it between steps.
+// The storage type S is only ever float: the bf16 branches below (S =
+// bf16, a `state` buffer between steps) are the former bf16 mode, which
+// nothing instantiates since csrc/gru_bf16.cu replaced it. They stay so
+// that the f32 kernel compiles exactly as before: a copy with them taken
+// out measured 0.9% slower at B=16 T=512 H=512 on an H100 (PERF.md section 6).
 //
 // What bounds it on an H100: the serial chain of T dependent steps, not
 // arithmetic. A step is B x 3H x H FMAs (0.4 us of the card's f32 rate at
@@ -590,16 +589,14 @@ int scan(const S* xw, const S* wh, const S* bh, const int* lengths, S* wpack, S*
 
 ZS_DEFINE_ERROR_STRING
 
-// The spread zs_gru_scan (bf16 == 0) or zs_gru_scan_bf16 (bf16 != 0) picks
-// for B rows on the current device (plan[0..9] = kc, NK, nb, NB, cb, a
+// The spread zs_gru_scan picks for B rows on the current device
+// (plan[0..9] = kc, NK, nb, NB, cb, a
 // block's shared memory in bytes, rows a launch, 1 when wh sits in
 // registers, Hs: the rows of the block's columns of wh held in shared
 // memory (H unless the spread is wide), and the elements of wpack the
 // call needs (0 unless wide); all 0 when none fits), for diagnostics and
 // for the wrapper's scratch. Returns a CUDA error.
-ZS_EXPORT int zs_gru_scan_plan(int* plan, int B, int H, int bf16_mode) {
-  return bf16_mode ? plan_of<bf16>(plan, B, H) : plan_of<float>(plan, B, H);
-}
+ZS_EXPORT int zs_gru_scan_plan(int* plan, int B, int H) { return plan_of<float>(plan, B, H); }
 
 // xw [B, T, 3H], wh [H, 3H], bh [3H], lengths [B] int32 or null -> ys
 // [B, T, H], all f32. reverse != 0 scans t = T-1 .. 0 (outputs stay in
@@ -613,14 +610,4 @@ ZS_EXPORT int zs_gru_scan(const float* xw, const float* wh, const float* bh, con
                           float* wpack, float* ys, unsigned* bar, int* n_launches, int B, int T, int H,
                           int reverse, void* stream) {
   return scan<float>(xw, wh, bh, lengths, wpack, ys, nullptr, bar, n_launches, B, T, H, reverse, stream);
-}
-
-// zs_gru_scan with xw, wh, bh and ys in bf16 and the state in f32: state is
-// scratch of 2 x B x H floats (the state each step hands to the next).
-ZS_EXPORT int zs_gru_scan_bf16(const void* xw, const void* wh, const void* bh, const int* lengths,
-                               void* wpack, void* ys, float* state, unsigned* bar, int* n_launches, int B,
-                               int T, int H, int reverse, void* stream) {
-  return scan<bf16>(static_cast<const bf16*>(xw), static_cast<const bf16*>(wh), static_cast<const bf16*>(bh),
-                    lengths, static_cast<bf16*>(wpack), static_cast<bf16*>(ys), state, bar, n_launches, B, T,
-                    H, reverse, stream);
 }

@@ -15,9 +15,10 @@ encoding). :func:`gru_scan` launches the kernel on a CUDA tensor and runs
 :func:`gru_scan_plain` on a CPU tensor; any other device raises.
 
 Two storage types, as ``pallas_gru_scan``: f32, or bf16 ``xw``/``wh``/``bh``
-and ``ys`` (``ops.KERNELS["gru_bf16"]``) with the state kept in f32 across
-the whole scan, each step's product taking h rounded to bf16 (exact
-products, f32 sums) and ``ys`` storing h rounded to bf16.
+and ``ys`` (``ops.KERNELS["gru_bf16"]``, its own kernel ``csrc/gru_bf16.cu``,
+the product on the tensor cores) with the state kept in f32 across the
+whole scan, each step's product taking h rounded to bf16 (exact products,
+f32 sums) and ``ys`` storing h rounded to bf16.
 
 Training differentiates through :class:`GRUScan`: kernel 2 forward,
 kernel 3 (:func:`gru_bwd`, plain version :func:`gru_bwd_plain`) backward.
@@ -92,19 +93,21 @@ _BAR_WORDS = 32  # zs_gru_scan: barrier words a batch group (a 128-byte line eac
 
 
 def scan_plan(device: torch.device, b: int, h: int, dtype: torch.dtype = torch.float32) -> tuple[int, ...]:
-    """The spread of kernel 2 that ``zs_gru_scan`` (or, for bf16,
-    ``zs_gru_scan_bf16``) picks for b rows on ``device`` (csrc/gru.cu
-    ``make_plan``): hidden columns a block, column groups, batch rows a
-    block, batch groups, rows staged a chunk, a block's dynamic shared
-    memory in bytes, rows a launch, 1 when a thread holds its share of wh
-    in registers, Hs (the rows of a block's columns of wh in shared memory:
-    h, unless the spread is wide and reads the rest from a packed copy
-    through L2), and the elements of that copy; all 0 when none fits."""
-    lib = build.load("gru")
+    """The spread of kernel 2 that ``zs_gru_scan`` (csrc/gru.cu) or, for
+    bf16, ``zs_gru_scan_bf16`` (csrc/gru_bf16.cu) picks for b rows on
+    ``device`` (their ``make_plan``): hidden columns a block, column
+    groups, batch rows a block, batch groups, rows staged a chunk, a
+    block's dynamic shared memory in bytes, rows a launch, 1 when a thread
+    holds its share of wh in registers, Hs (the rows of a block's columns
+    of wh on chip: h, unless the spread is wide and reads the rest from a
+    packed copy through L2), and the elements of that copy; all 0 when
+    none fits."""
+    bf16 = dtype == torch.bfloat16
+    lib = build.load("gru_bf16" if bf16 else "gru")
     plan = torch.zeros(10, dtype=torch.int32)
     with torch.cuda.device(device):
-        err = build.bind(lib, "zs_gru_scan_plan", 1, 3, stream=False)(
-            plan.data_ptr(), b, h, int(dtype == torch.bfloat16))
+        err = build.bind(lib, "zs_gru_scan_bf16_plan" if bf16 else "zs_gru_scan_plan", 1, 2, stream=False)(
+            plan.data_ptr(), b, h)
     build.check(lib, err, "gru plan")
     return tuple(plan.tolist())
 
@@ -117,16 +120,17 @@ def _pack_elems(device_index: int, b: int, h: int, dtype: torch.dtype) -> int:
 
 
 def gru_scan(xw, wh, bh, lengths=None, *, reverse: bool = False):
-    """Same contract as :func:`gru_scan_plain`; kernel 2 (csrc/gru.cu) on a
-    CUDA tensor, all in f32 or all in bf16 (an f32 state buffer beside the
-    bf16 ``ys``): ONE cooperative launch runs all T steps (at most a block
-    per SM, each owning some hidden columns and batch rows with its columns
-    of wh on chip, a barrier per batch group between steps). Any B (a
-    batch too large for the shared memory runs in slices, a launch each)
-    and any H: where a block's columns of wh (ceil(H / SMs) x 3H values)
-    outgrow its shared memory (H above ~1,550 in f32, ~2,100 in bf16 on an
-    H100), it keeps the first Hs rows there and reads the rest each step
-    from a copy packed for it (scratch allocated here)."""
+    """Same contract as :func:`gru_scan_plain`; kernel 2 on a CUDA tensor,
+    all in f32 (csrc/gru.cu) or all in bf16 (csrc/gru_bf16.cu: the product
+    on the tensor cores, the f32 state on chip): ONE cooperative launch
+    runs all T steps (at most a block per SM, each owning some hidden
+    columns and batch rows with its columns of wh on chip, a barrier per
+    batch group between steps). Any B (a batch too large for the shared
+    memory runs in slices, a launch each) and any H: where a block's
+    columns of wh (ceil(H / SMs) x 3H values) outgrow its shared memory (H
+    above ~1,550 in f32, ~2,110 in bf16 on an H100), it keeps the first Hs
+    rows there and reads the rest each step from a copy packed for it
+    (scratch allocated here)."""
     if xw.device.type == "cpu":
         return gru_scan_plain(xw, wh, bh, lengths, reverse=reverse)
     b, t, h = _check_args(xw, wh, bh, lengths, reverse)
@@ -140,19 +144,14 @@ def gru_scan(xw, wh, bh, lengths=None, *, reverse: bool = False):
     n_sm = torch.cuda.get_device_properties(xw.device).multi_processor_count
     bar = torch.empty(_BAR_WORDS * n_sm, dtype=torch.int32, device=xw.device)  # scratch: group counters
     n_launches = ctypes.c_int(0)
-    lib = build.load("gru")
+    lib = build.load("gru" if dt == torch.float32 else "gru_bf16")
     n_pack = _pack_elems(xw.device.index, b, h, dt) if b else 0
     wpack = torch.empty(n_pack, device=xw.device, dtype=dt) if n_pack else None  # scratch: wh past Hs
-    ptrs = [xw.data_ptr(), wh.data_ptr(), bh.data_ptr(),
-            None if lengths is None else lengths.data_ptr(),
-            None if wpack is None else wpack.data_ptr(), ys.data_ptr()]
-    if dt == torch.bfloat16:
-        state = torch.empty(2, b, h, device=xw.device)  # scratch: the f32 state a step hands on
-        ptrs.append(state.data_ptr())
-    fn = build.bind(lib, "zs_gru_scan" if dt == torch.float32 else "zs_gru_scan_bf16", len(ptrs) + 2, 4)
+    fn = build.bind(lib, "zs_gru_scan" if dt == torch.float32 else "zs_gru_scan_bf16", 8, 4)
     with build.on_card(xw):
-        err = fn(*ptrs, bar.data_ptr(), ctypes.addressof(n_launches), b, t, h, int(reverse),
-                 build.stream_of(xw))
+        err = fn(xw.data_ptr(), wh.data_ptr(), bh.data_ptr(), None if lengths is None else lengths.data_ptr(),
+                 None if wpack is None else wpack.data_ptr(), ys.data_ptr(), bar.data_ptr(),
+                 ctypes.addressof(n_launches), b, t, h, int(reverse), build.stream_of(xw))
     build.check(lib, err, "gru kernel")
     global launches, bf16_launches
     if dt == torch.float32:
