@@ -78,7 +78,21 @@
    whose trace must name kernels 2 and 3; train2 (one GAN cycle) from the
    loader; then steps/s of the loader route beside the --device-data route
    on the same 20-iteration schedule (printed, no bar).
-6c. Multi-device at flagship width (multi_device_path): tools/dp_parity.py
+6c. Wires (wire_routes, matmul_precision_arms) at flagship width, each
+   route counted apart and every kernel input it met held against the
+   plain version: convert --from-wavs --wire-mulaw (kernels 1, 2 and 4;
+   units > 0.95 of the exact route's, int16 wavs of its shapes), the
+   corpus route with --wire-uint8 (kernels 2 and 4; units > 0.95 of the
+   bf16 wire's) and with --adaptive-buckets 4 --bucket-cost-model executed
+   --frame-budget 8192 --dispatch-cost-frames N at N = 0 and at the
+   smallest power of two that changes the plan (fewer dispatches, the
+   planner's edges), serve --wire-mulaw (one request: PCM16 of the int16
+   wire's length); then --matmul-precision float32, tensorfloat32 and
+   bfloat16, each a GL-100 conversion and one train1 step a phase, the
+   lower arms held to cli.MATMUL_PRECISION_BARS against float32 (units,
+   losses) and the package's pin (TF32 off, 'highest') restored and
+   checked after every arm.
+6d. Multi-device at flagship width (multi_device_path): tools/dp_parity.py
    with two ranks on cuda:0 over gloo (and over NCCL on two cards where two
    are visible), one step of each kind from Adam moments that are not zero
    against the single-process step (ranks bit-equal; parameters, gradients
@@ -145,6 +159,7 @@ BF16_ULP = 2.0**-8  # kernel 2's bf16 bar: one bf16 ulp at |y| in [0.5, 1), the 
 # doing that sits near 1; summation order alone, far below)
 BF16_CONTROL_RATIO = 0.5
 BF16_CONTROL = {}  # where -> the kernel's and the control's distances from the plain version
+WIRE_AGREE = 0.95  # unit agreement of a wire route with the same route's int16 / bf16 wire (JAX's bar)
 
 
 def fail(msg: str) -> None:
@@ -216,7 +231,9 @@ def capture(names, store: dict):
     other arguments) and counts the calls, in store[name][key] = [args,
     kwargs, count], then calls through; "gru" keeps its bf16 calls under
     "gru_bf16" (kernel 2's bf16 mode). The wrapper is replaced in every
-    module of the port that holds it, and restored on exit."""
+    module of the port that holds it, and on exit the kernel is restored
+    in every module of the port holding the wrapper (a module first
+    imported inside the block imports the wrapper)."""
     import torch
 
     def sig(a):
@@ -243,12 +260,16 @@ def capture(names, store: dict):
             if getattr(mod, "__name__", "").startswith("zerospeech_tts_tpu_torch") \
                     and getattr(mod, KERNEL_FNS[name][1], None) is orig:
                 setattr(mod, KERNEL_FNS[name][1], wrapper)
-                patched.append((mod, KERNEL_FNS[name][1], orig))
+        patched.append((KERNEL_FNS[name][1], wrapper, orig))
     try:
         yield store
     finally:
-        for mod, attr, orig in patched:
-            setattr(mod, attr, orig)
+        # every module of the port holding a wrapper, one first imported inside the block too
+        for mod in list(sys.modules.values()):
+            if getattr(mod, "__name__", "").startswith("zerospeech_tts_tpu_torch"):
+                for attr, wrapper, orig in patched:
+                    if getattr(mod, attr, None) is wrapper:
+                        setattr(mod, attr, orig)
 
 
 def work(name: str, args, kw) -> tuple[float, float]:
@@ -943,11 +964,16 @@ def main() -> None:
     train = train_path(OUT / "train")
     mel = mel_path(OUT / "mel")
     host = host_data_path(OUT / "host")
+
+    # ------------------------- the wires, the dispatch cost, --matmul-precision
+    wires = wire_routes(OUT, wav_dir, result_dir, OUT / "corpus")
+    arms = matmul_precision_arms(OUT, wav_dir, OUT / "host")
     multi = multi_device_path(OUT / "multi", OUT / "host", OUT)
     by_path = {"conversion": conv_launches, **bf16.pop("launches"), "serve": served.pop("launches"),
                **corpus.pop("launches"), "training": train.pop("launches"),
                "convert_after_training": train.pop("convert_launches"), **mel.pop("launches"),
-               "host_data": host.pop("launches"), **multi.pop("launches")}
+               "host_data": host.pop("launches"), **wires.pop("launches"), **arms.pop("launches"),
+               **multi.pop("launches")}
     path["gru_bwd"] = train.pop("path")
     step_check = card_vs_cpu_steps()
     check("jax" not in sys.modules, "jax was imported")
@@ -971,7 +997,8 @@ def main() -> None:
              reference_unit_agreement=agree,
              reference_pcm_rel_l2=pcm_rel, corpus=corpus, training=train,
              gru_bf16_like_for_like=results["gru_bf16_vs_cudnn"], gru_bf16_control=BF16_CONTROL,
-             bf16_routes=bf16, serve=served, mel=mel, wide_h=wide, host_data=host, multi_device=multi,
+             bf16_routes=bf16, serve=served, mel=mel, wide_h=wide, host_data=host, wire_routes=wires,
+             matmul_precision=arms, multi_device=multi,
              card_vs_cpu_steps=step_check, card=card_line()), indent=2) + "\n")
     print(card_line())
     print(json.dumps({"kernels": kernels}))
@@ -994,6 +1021,44 @@ def unit_files_agreement(dir_a: Path, dir_b: Path) -> tuple[float, int]:
     return same / bits, bits
 
 
+def _counted(route: str, argv, names, calls: dict, launches: dict, walls: dict):
+    """cli.main(argv) as one counted route: its kernel launches set to 0
+    just before and read just after, each named kernel's inputs kept in
+    calls[route] (capture); returns the verb's result."""
+    import torch
+
+    from zerospeech_tts_tpu_torch import cli, ops
+
+    calls[route] = {}
+    with capture(names, calls[route]):
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = cli.main(argv)
+        torch.cuda.synchronize()
+        walls[route] = time.perf_counter() - t0
+        launches[route] = ops.launch_counts()
+    return res
+
+
+def _hold_routes(routes, calls: dict, launches: dict) -> dict:
+    """Every kernel input each route captured against the plain version
+    (hold_path_calls' bars); a wrapper's captured calls are its launches."""
+    held = {}
+    for route in routes:
+        for name, c in calls[route].items():
+            n = sum(count for _, _, count in c.values())
+            check(n == launches[route][name], f"{route}: {n} captured {name} calls, {launches[route][name]} launches")
+            if c:
+                held[f"{name} {route}"] = hold_path_calls(name, c, route)
+    return held
+
+
+def _want_launches(route: str, launches: dict, want) -> None:
+    for name, n in launches[route].items():
+        check(n > 0 if name in want else n == 0, f"{route}: kernel {name} launched {n} times")
+
+
 def bf16_routes(out: Path, wav_dir: Path, exact_dir: Path, device: str = "cuda") -> dict:
     """``convert --bf16`` and ``convert --bf16 --enc-f32`` through the CLI on
     the conversion path's wavs and bundle (flagship width, GL-100), each
@@ -1002,32 +1067,21 @@ def bf16_routes(out: Path, wav_dir: Path, exact_dir: Path, device: str = "cuda")
     encoder and the decoder, the enc-f32 route f32 for the encoder; neither
     takes the plain route. Unit agreement with the exact route's files:
     >= 0.999 for enc-f32, > 0.9 for all-bf16. Kernel 2 (both modes) and
-    kernel 4 are held at every input the routes gave them; kernel 2's bf16
-    path times come from the all-bf16 route."""
+    kernels 1 and 4 are held at every input the routes gave them; kernel 2's
+    bf16 path times come from the all-bf16 route."""
     import scipy.io.wavfile
-    import torch
 
-    from zerospeech_tts_tpu_torch import cli, ops
     from zerospeech_tts_tpu_torch.tools.workload import TARGETS
 
     routes = {"conversion_bf16": ["--bf16"], "conversion_bf16_enc_f32": ["--bf16", "--enc-f32"]}
     launches, calls, agree, walls = {}, {}, {}, {}
     for route, flags in routes.items():
-        calls[route] = {}
         res = out / f"result_{route}"
-        with capture(("frontend", "gru", "griffin_lim"), calls[route]):
-            ops.reset_launches()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            cli.main(["convert", "--from-export", str(out / "bundle"), "--from-wavs", str(wav_dir),
-                      "-result_dir", str(res), "--target", *TARGETS, *flags, "--device", device])
-            torch.cuda.synchronize()
-            walls[route] = time.perf_counter() - t0
-            launches[route] = ops.launch_counts()
-        want = {"frontend", "gru_bf16", "griffin_lim"} | ({"gru"} if "--enc-f32" in flags else set())
-        for name in ("frontend", "gru", "gru_bf16", "griffin_lim", "gru_bwd"):
-            n = launches[route][name]
-            check(n > 0 if name in want else n == 0, f"{route}: kernel {name} launched {n} times")
+        _counted(route, ["convert", "--from-export", str(out / "bundle"), "--from-wavs", str(wav_dir),
+                         "-result_dir", str(res), "--target", *TARGETS, *flags, "--device", device],
+                 ("frontend", "gru", "griffin_lim"), calls, launches, walls)
+        _want_launches(route, launches,
+                       {"frontend", "gru_bf16", "griffin_lim"} | ({"gru"} if "--enc-f32" in flags else set()))
         agree[route] = unit_files_agreement(res, exact_dir)[0]
         for p in sorted((exact_dir / TARGETS[0]).glob("*.wav")):
             for tgt in TARGETS:
@@ -1039,14 +1093,7 @@ def bf16_routes(out: Path, wav_dir: Path, exact_dir: Path, device: str = "cuda")
     check(agree["conversion_bf16_enc_f32"] >= 0.999,
           f"--bf16 --enc-f32 units agree with the exact route at {agree['conversion_bf16_enc_f32']} (< 0.999)")
     check(agree["conversion_bf16"] > 0.9, f"--bf16 units agree with the exact route at {agree['conversion_bf16']}")
-    held = {}
-    for route in routes:
-        for name in ("frontend", "gru", "gru_bf16", "griffin_lim"):
-            c = calls[route].get(name, {})
-            n = sum(count for _, _, count in c.values())
-            check(n == launches[route][name], f"{route}: {n} captured {name} calls, {launches[route][name]} launches")
-            if c and name != "frontend":  # the frontend's inputs are the exact route's, held there
-                held[f"{name} {route}"] = hold_path_calls(name, c, route)
+    held = _hold_routes(routes, calls, launches)
     print("kernels at the bf16 routes' inputs against their plain versions: "
           + "; ".join(f"{k} {v:.3e}" for k, v in held.items()), flush=True)
     pt = path_times("gru_bf16", calls["conversion_bf16"]["gru_bf16"])
@@ -1189,6 +1236,211 @@ def serve_path(out: Path, wav_dir: Path, exact_dir: Path, device: str = "cuda") 
                 unit_bits=bits, result=result)
 
 
+def wire_routes(out: Path, wav_dir: Path, exact_dir: Path, corpus_work: Path, device: str = "cuda") -> dict:
+    """The two wires and the dispatch cost through the CLI on ``device`` at
+    flagship width (the conversion path's wavs, bundle and exact-route
+    files; the corpus phase's split and its uniform route's files), each
+    route's launches counted apart and every kernel input it gave a kernel
+    held against the plain version:
+
+    - ``convert --from-wavs --wire-mulaw`` at GL-100: kernels 1, 2 and 4;
+      unit agreement with the exact route > WIRE_AGREE; int16 wavs of the
+      exact route's shapes.
+    - the corpus route with ``--wire-uint8``: kernels 2 and 4; unit
+      agreement with the same route on the bf16 wire > WIRE_AGREE.
+    - the corpus route with ``--adaptive-buckets 4 --bucket-cost-model
+      executed --dispatch-cost-frames N`` at N = 0 and at the smallest
+      power-of-two N (frame-rows) from 2^10 that changes the planner's
+      edges for these lengths: each plan's dispatches and edges, the
+      second with fewer dispatches and the plan the planner gave.
+    - ``serve --wire-mulaw``: one /convert request answers a 16 kHz PCM16
+      wav of the int16 wire's length (the exact route's file)."""
+    import base64
+    import io
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import scipy.io.wavfile
+    import torch
+
+    from zerospeech_tts_tpu_torch import cli, ops
+    from zerospeech_tts_tpu_torch.convert import Converter, load_corpus_split
+    from zerospeech_tts_tpu_torch.export import load_export
+    from zerospeech_tts_tpu_torch.params import from_flax
+    from zerospeech_tts_tpu_torch.tools.workload import TARGETS
+
+    bundle, ds = out / "bundle", corpus_work / "ds"
+    dev = ["--device", device]
+    corpus = ["convert", "--from-export", str(bundle), "-dataset_path", str(ds), "--target", *TARGETS]
+    names = ("frontend", "gru", "griffin_lim")
+    launches, calls, walls, agree, outs = {}, {}, {}, {}, {}
+
+    route = "wire_mulaw"
+    res = out / f"result_{route}"
+    outs[route] = _counted(route, ["convert", "--from-export", str(bundle), "--from-wavs", str(wav_dir),
+                                   "-result_dir", str(res), "--target", *TARGETS, "--wire-mulaw", *dev],
+                           names, calls, launches, walls)
+    _want_launches(route, launches, names)
+    agree[route] = unit_files_agreement(res, exact_dir)[0]
+    for p in sorted((exact_dir / TARGETS[0]).glob("*.wav")):
+        for tgt in TARGETS:
+            sr, pcm = scipy.io.wavfile.read(res / tgt / p.name)
+            want = scipy.io.wavfile.read(exact_dir / tgt / p.name)[1]
+            check(sr == 16000 and pcm.dtype == np.int16 and pcm.shape == want.shape,
+                  f"{route} {tgt}/{p.name}: {sr} Hz {pcm.dtype} {pcm.shape}, want {want.shape}")
+
+    route = "corpus_wire_uint8"
+    res = corpus_work / "uint8"
+    outs[route] = _counted(route, [*corpus, "-result_dir", str(res), "--wire-uint8", *dev],
+                           names, calls, launches, walls)
+    _want_launches(route, launches, ("gru", "griffin_lim"))
+    agree[route] = unit_files_agreement(res, corpus_work / "b")[0]
+
+    # the dispatch cost: N = 0, then the smallest power of two from 2^10 whose plan differs
+    bun = load_export(bundle)
+    feats = load_corpus_split(ds, "test")[0]
+    frames = [f.shape[0] for f in feats]
+    planner = Converter(bun.hps, bun.acfg, *from_flax({"enc": bun.enc, "dec": bun.dec}), stats=bun.stats,
+                        frame_budget=8192, device="cpu")
+    plan0 = planner.fit_buckets(frames, 4, cost_model="executed")
+    n_big = 1024.0
+    while planner.fit_buckets(frames, 4, cost_model="executed", dispatch_cost_frames=n_big) == plan0:
+        n_big *= 2
+        check(n_big <= 2.0**30, f"no dispatch cost up to 2^30 frame-rows changes the plan {plan0}")
+    plan_big = planner.bucket_edges
+    plans = {}
+    for n_cost, want in ((0.0, plan0), (n_big, plan_big)):
+        route = f"corpus_dispatch_cost_{int(n_cost)}"
+        outs[route] = _counted(route, [*corpus, "-result_dir", str(corpus_work / route), "--adaptive-buckets", "4",
+                                       "--bucket-cost-model", "executed", "--frame-budget", "8192",
+                                       "--dispatch-cost-frames", str(n_cost), *dev], names, calls, launches, walls)
+        _want_launches(route, launches, ("gru", "griffin_lim"))
+        plans[n_cost] = {k: outs[route][k] for k in ("bucket_edges", "n_dispatches", "padding_overhead",
+                                                     "executed_overhead")}
+        check(outs[route]["bucket_edges"] == want, f"{route}: edges {outs[route]['bucket_edges']}, the planner's {want}")
+        agree[route] = unit_files_agreement(corpus_work / route, corpus_work / "b")[0]
+    check(plans[n_big]["n_dispatches"] < plans[0.0]["n_dispatches"],
+          f"--dispatch-cost-frames {n_big}: {plans[n_big]['n_dispatches']} dispatches, at 0 {plans[0.0]['n_dispatches']}")
+
+    # serve --wire-mulaw: one request, its launches counted from just before it to just after
+    route = "serve_wire_mulaw"
+    args = cli.build_parser().parse_args(["serve", "--from-export", str(bundle), "--host", "127.0.0.1", "--port", "0",
+                                          "--wire-mulaw", *dev])
+    ready, bound_ev, served = [], threading.Event(), {}
+
+    def on_serving(httpd, svc):
+        ready.append(httpd)
+        bound_ev.set()
+
+    th = threading.Thread(target=lambda: served.update(cli.cmd_serve(args, on_serving)), daemon=True)
+    th.start()
+    check(bound_ev.wait(600), "serve --wire-mulaw did not start within 600 s")
+    httpd = ready[0]
+    wav = sorted(wav_dir.glob("*.wav"))[0]
+    try:
+        calls[route] = {}
+        with capture(names, calls[route]):
+            ops.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            req = urllib.request.Request(f"http://127.0.0.1:{httpd.server_address[1]}/convert?targets={TARGETS[0]}",
+                                         data=wav.read_bytes(), method="POST")
+            with urllib.request.urlopen(req, timeout=300) as r:
+                body = json.loads(r.read())
+            torch.cuda.synchronize()
+            walls[route] = time.perf_counter() - t0
+            launches[route] = ops.launch_counts()
+    finally:
+        httpd.shutdown()
+        th.join(60)
+    check(not th.is_alive(), "serve --wire-mulaw did not return after shutdown")
+    _want_launches(route, launches, names)
+    sr, pcm = scipy.io.wavfile.read(io.BytesIO(base64.b64decode(body["wavs"][TARGETS[0]])))
+    want = scipy.io.wavfile.read(exact_dir / TARGETS[0] / wav.name)[1]
+    check(sr == 16000 and pcm.dtype == np.int16 and pcm.shape == want.shape,
+          f"{route}: {sr} Hz {pcm.dtype} {pcm.shape}, the int16 wire's {want.shape}")
+    u = np.array([[int(v) for v in row.split()] for row in body["units"].splitlines()], np.int32)
+    ref = np.loadtxt(exact_dir / "units" / f"{wav.stem}.txt", dtype=np.int32, ndmin=2)
+    check(u.shape == ref.shape, f"{route}: units {u.shape}, the exact route's {ref.shape}")
+    agree[route] = float((u == ref).mean())
+
+    for route, a in agree.items():
+        check(a > WIRE_AGREE, f"{route}: unit agreement {a} (> {WIRE_AGREE})")
+    held = _hold_routes(list(calls), calls, launches)
+    for route in calls:
+        extra = ""
+        if route in outs and "n_dispatches" in outs[route]:
+            extra = f"; {outs[route]['n_dispatches']} dispatches, edges {outs[route]['bucket_edges']}"
+        print(f"{route}: wall {walls[route]:.3f} s; launches {launches[route]}; unit agreement {agree[route]:.6f} "
+              f"(> {WIRE_AGREE}){extra}", flush=True)
+    print(f"--dispatch-cost-frames: 0 -> {plans[0.0]['n_dispatches']} dispatches, edges {plans[0.0]['bucket_edges']}; "
+          f"{n_big:g} -> {plans[n_big]['n_dispatches']} dispatches, edges {plans[n_big]['bucket_edges']}", flush=True)
+    print("kernels at the wire routes' inputs against their plain versions: "
+          + "; ".join(f"{k} {v:.3e}" for k, v in held.items()), flush=True)
+    return dict(launches=launches, agreement=agree, walls_s=walls, held=held, dispatch_cost={
+        "n_large": n_big, "plans": {str(k): v for k, v in plans.items()}})
+
+
+def matmul_precision_arms(out: Path, wav_dir: Path, host_work: Path, device: str = "cuda") -> dict:
+    """--matmul-precision float32, tensorfloat32 and bfloat16 through the
+    CLI: a flagship-width GL-100 conversion of the conversion path's wavs
+    and one train1 step a phase (--fresh, --device-data, the host phase's
+    corpus, the same seed) each, every route counted apart and its kernel
+    inputs held. Gate (cli.MATMUL_PRECISION_BARS): each lower arm's unit
+    agreement with the float32 arm's files and the largest relative
+    distance of its losses from the float32 arm's. After every arm the
+    package's pin is restored (TF32 off, precision 'highest') and checked,
+    so no later phase runs under the arm's flags."""
+    import numpy as np
+    import torch
+
+    from zerospeech_tts_tpu_torch import cli
+    from zerospeech_tts_tpu_torch.tools.workload import TARGETS
+
+    dev = ["--device", device]
+    train = ["train1", "-dataset_path", str(host_work / "ds"), "-index_path", str(host_work / "idx.json"),
+             "--iters-override", "1", "--fresh", "--device-data", *dev]
+    launches, calls, walls, losses, report = {}, {}, {}, {}, {}
+    pinned = lambda: (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,  # noqa: E731
+                      torch.get_float32_matmul_precision())
+    check(pinned() == (False, False, "highest"), f"the package's pin is not in force: {pinned()}")
+    for arm in ("float32", "tensorfloat32", "bfloat16"):
+        res = out / f"result_matmul_{arm}"
+        try:
+            _counted(f"matmul_{arm}_convert", ["convert", "--from-export", str(out / "bundle"), "--from-wavs",
+                                               str(wav_dir), "-result_dir", str(res), "--target", *TARGETS,
+                                               "--matmul-precision", arm, *dev],
+                     ("frontend", "gru", "griffin_lim"), calls, launches, walls)
+            r = _counted(f"matmul_{arm}_train1", [*train, "-ckpt_dir", str(host_work / f"ck_matmul_{arm}"),
+                                                  "--matmul-precision", arm], ("gru", "gru_bwd"),
+                         calls, launches, walls)
+        finally:
+            cli.apply_matmul_precision("float32")  # the package's pin
+        check(pinned() == (False, False, "highest"), f"after --matmul-precision {arm}: {pinned()}")
+        losses[arm] = {f"{ph} {k}": v for ph, d in r["phases"].items() for k, v in d["last"].items()
+                       if k.startswith("loss_")}
+        check(all(np.isfinite(v) for v in losses[arm].values()), f"{arm}: losses {losses[arm]}")
+    for arm, bars in cli.MATMUL_PRECISION_BARS.items():
+        units = unit_files_agreement(out / f"result_matmul_{arm}", out / "result_matmul_float32")[0]
+        rel = {k: abs(v - losses["float32"][k]) / abs(losses["float32"][k]) for k, v in losses[arm].items()}
+        worst = max(rel, key=rel.get)
+        report[arm] = dict(units=units, loss_rel=rel[worst], worst_loss=worst, losses=losses[arm])
+        print(f"--matmul-precision {arm}: units {units:.6f} of the float32 arm's (>= {bars['units']}); losses "
+              f"within {rel[worst]:.3e} relative (<= {bars['loss_rel']:g}; largest: {worst}); convert wall "
+              f"{walls[f'matmul_{arm}_convert']:.3f} s", flush=True)
+        check(units >= bars["units"], f"--matmul-precision {arm}: units {units} of the float32 arm's")
+        check(rel[worst] <= bars["loss_rel"], f"--matmul-precision {arm}: {worst} {rel[worst]} relative")
+    exact = unit_files_agreement(out / "result_matmul_float32", out / "result")[0]
+    print(f"--matmul-precision float32: units {exact:.6f} of the exact route's (>= 0.999)", flush=True)
+    check(exact >= 0.999, f"--matmul-precision float32: units {exact} of the exact route's")
+    held = _hold_routes(list(calls), calls, launches)
+    print("kernels at the --matmul-precision arms' inputs against their plain versions: "
+          + "; ".join(f"{k} {v:.3e}" for k, v in held.items()), flush=True)
+    print(f"  float32 arm's losses: " + ", ".join(f"{k} {v:.6g}" for k, v in losses["float32"].items()), flush=True)
+    return dict(launches=launches, arms=report, float32_losses=losses["float32"], held=held, walls_s=walls)
+
+
 def mel_path(work: Path, device: str = "cuda") -> dict:
     """``--feat mel`` at flagship width: the flagship hps with n_feat = 80
     (n_mels), written under ``work``, and a seeded 6-speaker corpus through
@@ -1304,7 +1556,7 @@ def corpus_path(work: Path, bundle: Path, device: str = "cuda") -> dict:
     import numpy as np
     import torch
 
-    from zerospeech_tts_tpu_torch import cli, ops
+    from zerospeech_tts_tpu_torch import cli
     from zerospeech_tts_tpu_torch.convert import load_corpus_split, read_units
     from zerospeech_tts_tpu_torch.export import load_export
     from zerospeech_tts_tpu_torch.models import Encoder
@@ -1329,23 +1581,13 @@ def corpus_path(work: Path, bundle: Path, device: str = "cuda") -> dict:
     }
     launches, outs, calls, walls = {}, {}, {}, {}
     for route, argv in routes.items():
-        calls[route] = {}
-        with capture(("frontend", "gru", "griffin_lim"), calls[route]):
-            ops.reset_launches()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            outs[route] = cli.main([*argv, *dev])
-            torch.cuda.synchronize()
-            walls[route] = time.perf_counter() - t0
-            launches[route] = ops.launch_counts()
+        outs[route] = _counted(route, [*argv, *dev], ("frontend", "gru", "griffin_lim"), calls, launches, walls)
         print(f"{route}: wall {walls[route]:.3f} s; launches {launches[route]}", flush=True)
     n_utt = outs["corpus_preprocess"]["counts"]["test"]
     for route, want in (("corpus_preprocess", ("frontend",)), ("corpus_units_only", ("gru",)),
                         ("corpus_uniform", ("gru", "griffin_lim")), ("corpus_adaptive", ("gru", "griffin_lim")),
                         ("wavs_units_only", ("frontend", "gru"))):
-        for name in ("frontend", "gru", "griffin_lim"):
-            n = launches[route][name]
-            check(n > 0 if name in want else n == 0, f"{route}: kernel {name} launched {n} times")
+        _want_launches(route, launches, want)
         if route != "corpus_preprocess":
             check(outs[route]["n_utterances"] == n_utt, f"{route}: {outs[route]['n_utterances']} utterances")
 
@@ -1353,19 +1595,11 @@ def corpus_path(work: Path, bundle: Path, device: str = "cuda") -> dict:
     # version (shapes no earlier phase reaches: kernel 4 at 24 x 640 frames,
     # past the L2, and at 2 x 2,176; kernel 2 masked at 24 rows x 640
     # steps); a wrapper's captured calls are its launches
-    held = {}
-    for route in routes:
-        for name in ("frontend", "gru", "griffin_lim"):
-            n = sum(count for _, _, count in calls[route][name].values())
-            check(n == launches[route][name], f"{route}: {n} captured {name} calls, "
-                  f"{launches[route][name]} launches")
-            if calls[route][name]:
-                held.setdefault(name, {})[route] = hold_path_calls(name, calls[route][name], route)
-    print("kernels at the corpus routes' inputs against their plain versions: " + "; ".join(
-        f"{name} {' '.join(f'{r} {e:.3e}' for r, e in by.items())} "
-        f"({'consistency |diff|, bar 1e-3' if name == 'griffin_lim' else 'max_abs_err, bar 1e-4'}"
-        f"{' beside float64 near the dB floor' if name == 'frontend' else ''})"
-        for name, by in held.items()), flush=True)
+    held = _hold_routes(routes, calls, launches)
+    print("kernels at the corpus routes' inputs against their plain versions: "
+          + "; ".join(f"{k} {v:.3e}" for k, v in held.items())
+          + " (griffin_lim: consistency |diff|, bar 1e-3; gru and the frontend: max_abs_err, bar 1e-4, the "
+          "frontend beside float64 near the dB floor)", flush=True)
 
     # outputs: (a) == (b) bit for bit; (c) agrees with (b) up to bits whose
     # plain CPU logit margin is < 1e-4; (d) well formed

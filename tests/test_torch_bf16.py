@@ -135,8 +135,9 @@ def test_converter_refuses_other_dtypes_and_feats(setup):
 def test_cli_bf16_flags_and_refused_wires(tmp_path, setup):
     """convert --bf16 [--enc-f32] and convert-single --bf16 through the CLI
     from a bundle: enc-f32's unit files equal the exact run's; the bf16
-    runs write int16 wavs. --wire-uint8 and --wire-mulaw exit with the
-    ROADMAP's "do not port"."""
+    runs write int16 wavs. The wire flags run: --wire-mulaw writes int16
+    wavs of the exact run's lengths, and --wire-uint8 on the wav route (no
+    feature wire there) writes the exact run's units."""
     h, tree, wavs = setup
     save_export(tmp_path / "bundle", h, AudioConfig(**ACFG), tree["enc"], tree["dec"], {"S01": 0, "V001": 1})
     for i, w in enumerate(wavs):
@@ -155,7 +156,12 @@ def test_cli_bf16_flags_and_refused_wires(tmp_path, setup):
                     str(tmp_path / "wavs" / "u0.wav"), "--target", "V001", "-result_dir",
                     str(tmp_path / "single"), "--bf16", "--enc-f32", "--device", "cpu"])
     assert np.array_equal(read_units(out["units"]), read_units(tmp_path / "exact" / "units" / "u0.txt"))
-    for flag in ("--wire-uint8", "--wire-mulaw"):
-        with pytest.raises(SystemExit, match="do not port"):
-            cli.main([*base, "-result_dir", str(tmp_path / "refused"), flag])
-    assert not (tmp_path / "refused").exists()
+    cli.main([*base, "-result_dir", str(tmp_path / "mulaw"), "--wire-mulaw"])
+    cli.main([*base, "-result_dir", str(tmp_path / "uint8"), "--wire-uint8"])
+    for i in range(len(wavs)):
+        ue = read_units(tmp_path / "exact" / "units" / f"u{i}.txt")
+        assert np.array_equal(read_units(tmp_path / "uint8" / "units" / f"u{i}.txt"), ue)
+        assert read_units(tmp_path / "mulaw" / "units" / f"u{i}.txt").shape == ue.shape
+        want = scipy.io.wavfile.read(tmp_path / "exact" / "V001" / f"u{i}.wav")[1]
+        sr, pcm = scipy.io.wavfile.read(tmp_path / "mulaw" / "V001" / f"u{i}.wav")
+        assert sr == 16000 and pcm.dtype == np.int16 and pcm.shape == want.shape

@@ -239,3 +239,59 @@ def test_encode_units_from_wavs_matches_jax(hps, params, stats):
     full, _ = p.convert_wavs_multi(wavs, [2], tgt_names=["V001"])
     for u, uf in zip(pu, full):
         np.testing.assert_array_equal(u, uf)
+
+
+# frame counts whose executed plan changes with the dispatch cost (batch 2
+# or 8, with and without a frame budget): 2 edges at N = 0, 1 at N = 400
+DISPATCH_FRAMES = [20, 30, 45, 60, 90, 120]
+DISPATCH_COSTS = (0.0, 100.0, 400.0, 1e4)
+
+
+@pytest.mark.parametrize("batch", [2, 8])
+def test_fit_buckets_dispatch_cost_equals_jax(hps, params, stats, batch):
+    """fit_buckets(cost_model="executed", dispatch_cost_frames=N) and the
+    plan's _bucket_stats equal the JAX Converter's (exact) at four N, with
+    and without a frame budget; N changes the plan."""
+    changed = 0
+    for budget in (None, 1024):
+        j, p = _pair(hps, params, stats, batch_size=batch, bucket_frames=64, frame_budget=budget)
+        for lengths in _length_sets() + [DISPATCH_FRAMES]:
+            plans = []
+            for n in DISPATCH_COSTS:
+                edges = p.fit_buckets(lengths, 3, cost_model="executed", dispatch_cost_frames=n)
+                assert edges == j.fit_buckets(lengths, 3, cost_model="executed", dispatch_cost_frames=n)
+                assert port_convert._bucket_stats(p, lengths) == jax_convert._bucket_stats(j, lengths)
+                plans.append(edges)
+            changed += any(e != plans[0] for e in plans)
+    assert changed > 0
+
+
+def test_cli_dispatch_cost_frames_plans_as_jax(tmp_path, hps, params, stats):
+    """convert --units-only --adaptive-buckets 3 --bucket-cost-model executed
+    --frame-budget 1024 --dispatch-cost-frames N from a directory of wavs:
+    the CLI's bucket stats show the edges the JAX Converter fits to the same
+    trimmed lengths (its default batch 8, bucket 64), at N = 0, 100 and 400,
+    and 400 gives fewer edges."""
+    from zerospeech_tts_tpu_torch import cli
+    from zerospeech_tts_tpu_torch.dsp.wavio import load_wav, save_wav, trim_silence
+    from zerospeech_tts_tpu_torch.export import save_export
+
+    acfg = AudioConfig(**ACFG)
+    save_export(tmp_path / "bundle", hps, acfg, params["enc"]["params"], params["dec"]["params"],
+                {"S01": 0, "V001": 2}, stats=SpeakerStats(*stats))
+    for i, t in enumerate(DISPATCH_FRAMES):
+        save_wav(tmp_path / "wavs" / f"u{i}.wav", _speechlike((t - 1) * acfg.hop_length, i), 16000)
+    frames = [port_audio.n_frames_for(len(trim_silence(load_wav(p, 16000), acfg.top_db)), acfg)
+              for p in sorted((tmp_path / "wavs").glob("*.wav"))]
+    j = jax_convert.Converter(hps, JaxAudioConfig(**ACFG), params["enc"], params["dec"], frame_budget=1024,
+                              stats=JaxSpeakerStats(*stats), gru_impl="scan")
+    edges = {}
+    for n in (0, 100, 400):
+        out = cli.main(["convert", "--from-export", str(tmp_path / "bundle"), "--from-wavs", str(tmp_path / "wavs"),
+                        "-result_dir", str(tmp_path / f"o{n}"), "--units-only", "--adaptive-buckets", "3",
+                        "--bucket-cost-model", "executed", "--frame-budget", "1024",
+                        "--dispatch-cost-frames", str(n), "--device", "cpu"])
+        edges[n] = out["bucket_edges"]
+        assert edges[n] == j.fit_buckets(frames, 3, cost_model="executed", dispatch_cost_frames=n)
+        assert out["n_dispatches"] == jax_convert._bucket_stats(j, frames)["n_dispatches"]
+    assert len(edges[400]) < len(edges[0]), edges

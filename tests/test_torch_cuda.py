@@ -516,6 +516,50 @@ def test_converter_split_over_one_card_twice_matches_one_device(cuda, tmp_path):
             assert p.shape == q.shape and np.abs(p.astype(np.int32) - q.astype(np.int32)).max() <= 1
 
 
+def test_matmul_precision_arms_meet_their_bars(cuda, tmp_path):
+    """--matmul-precision tensorfloat32 and bfloat16 against float32 on the
+    card (cli.MATMUL_PRECISION_BARS): a convert of the conversion workload
+    (flagship width, GL-100) and one train1 step a phase at flagship width
+    (--fresh, --device-data, the same seed): unit agreement with the
+    float32 arm's files, and each loss within its relative bar. The
+    package's pin (TF32 off, precision 'highest') is restored after every
+    arm and holds at the end."""
+    from zerospeech_tts_tpu_torch import cli
+    from zerospeech_tts_tpu_torch.convert import read_units
+    from zerospeech_tts_tpu_torch.tools.workload import TARGETS, write_train_corpus, write_workload
+
+    def pin():
+        return (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+                torch.get_float32_matmul_precision())
+
+    assert pin() == (False, False, "highest")
+    write_workload(tmp_path, seed=0)
+    corpus = write_train_corpus(tmp_path / "train", n_utts=2)
+    ds, idx = str(tmp_path / "ds"), str(tmp_path / "idx.json")
+    cli.main(["preprocess", "--corpus", str(corpus), "-dataset_path", ds, "-index_path", idx, "--n-samples", "500"])
+    units, losses = {}, {}
+    for arm in ("float32", "tensorfloat32", "bfloat16"):
+        try:
+            cli.main(["convert", "--from-export", str(tmp_path / "bundle"), "--from-wavs", str(tmp_path / "wavs"),
+                      "-result_dir", str(tmp_path / arm), "--target", *TARGETS, "--matmul-precision", arm])
+            r = cli.main(["train1", "-dataset_path", ds, "-index_path", idx, "-ckpt_dir", str(tmp_path / f"ck_{arm}"),
+                          "--iters-override", "1", "--fresh", "--device-data", "--matmul-precision", arm])
+        finally:
+            cli.apply_matmul_precision("float32")
+        assert pin() == (False, False, "highest"), arm
+        units[arm] = {p.name: read_units(p) for p in sorted((tmp_path / arm / "units").glob("*.txt"))}
+        losses[arm] = {(ph, k): v for ph, d in r["phases"].items() for k, v in d["last"].items()
+                       if k.startswith("loss_")}
+    assert len(units["float32"]) == 8 and len(losses["float32"]) >= 6
+    for arm, bars in cli.MATMUL_PRECISION_BARS.items():
+        same = sum(int((units[arm][n] == u).sum()) for n, u in units["float32"].items())
+        bits = sum(u.size for u in units["float32"].values())
+        assert same / bits >= bars["units"], (arm, same / bits)
+        for key, v in losses[arm].items():
+            ref = losses["float32"][key]
+            assert math.isfinite(v) and abs(v - ref) <= bars["loss_rel"] * abs(ref), (arm, key, v, ref)
+
+
 def test_dp_parity_two_ranks_on_one_card_over_gloo(cuda):
     """tools/dp_parity.py at world 2 on cuda:0 over gloo, tiny width, from
     Adam moments that are not zero: every step meets dp_parity.failures'

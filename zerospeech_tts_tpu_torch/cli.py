@@ -16,13 +16,14 @@
         -dataset_path DS [--split test]] -result_dir O [--target V001 V002] \
         [--units-only] [--bf16 [--enc-f32]] [--gl-iters N] [--batch-size N] \
         [--limit N] [--frame-budget N] [--adaptive-buckets K \
-        [--bucket-overhead-target F] [--bucket-cost-model frames|executed]]
+        [--bucket-overhead-target F] [--bucket-cost-model frames|executed \
+        [--dispatch-cost-frames N]]] [--wire-mulaw] [--wire-uint8]
     python -m zerospeech_tts_tpu_torch convert-single (--from-export B | \
         -dataset_path DS -ckpt_dir CK) --source X.wav --target V001 -result_dir O \
         [--bf16 [--enc-f32]] [--feat lin|mel]
     python -m zerospeech_tts_tpu_torch serve (--from-export B | -dataset_path DS \
         -ckpt_dir CK) [--host H] [--port P] [--batch-size N] [--batch-window-ms MS] \
-        [--warmup-buckets 256,512] [--bf16 [--enc-f32]] [--feat lin|mel]
+        [--warmup-buckets 256,512] [--bf16 [--enc-f32]] [--feat lin|mel] [--wire-mulaw]
     python -m zerospeech_tts_tpu_torch eval [--units O/units [--abx ITEMS \
         [--abx-across] [--abx-max-triples N]]] [--recon] [--stability] \
         [-dataset_path DS -ckpt_dir CK --split train --n-segments 64 --feat lin|mel]
@@ -54,8 +55,12 @@ large parameters and of their Adam moments, parallel/mesh.py; the state
 is placed so whether fresh or restored). Conversion replicates the model
 and splits every dispatch's rows over the D data blocks of its one
 process, block d on card d*M; a multi-process launch of a conversion verb
-is refused. ``submission`` and ``eval --units/--abx`` read files only. ``--wire-uint8`` and ``--wire-mulaw`` are
-refused: they are on ROADMAP.md's "do not port" list.
+is refused. ``submission`` and ``eval --units/--abx`` read files only.
+
+The wires of the JAX package's Converter: ``--wire-mulaw`` (convert,
+serve) carries PCM between host and card as 8-bit mu-law codes, both
+ways; ``--wire-uint8`` (convert) carries corpus features as per-utterance
+uint8 codes. Files and HTTP answers stay PCM16.
 """
 
 from __future__ import annotations
@@ -77,6 +82,18 @@ from zerospeech_tts_tpu_torch.config import DEFAULT_HPS_PATH, load_configs
 
 FEATS = ("lin", "mel")
 MATMUL_PRECISIONS = ("bfloat16", "tensorfloat32", "float32", "highest")
+# The gate of the two lower --matmul-precision arms against the float32 arm
+# (the package's pin), held on the card by chip_smoke.py and
+# tests/test_torch_cuda.py: "units", the share of unit bits equal to the
+# float32 arm's over a flagship-width GL-100 conversion (the --bf16 route's
+# bar, > 0.9, is the loosest allowed); "loss_rel", the largest relative
+# distance of a loss of one train1 step a phase from the float32 arm's.
+# Read on an H100 80GB HBM3 (700 W) by chip_smoke.py's arms: tensorfloat32
+# 0.999776 of the units, losses within 7.2e-5; bfloat16 0.999824, 1.4e-4.
+MATMUL_PRECISION_BARS = {
+    "tensorfloat32": {"units": 0.995, "loss_rel": 2e-3},
+    "bfloat16": {"units": 0.995, "loss_rel": 2e-3},
+}
 
 
 def global_flags(p) -> None:
@@ -94,7 +111,10 @@ def global_flags(p) -> None:
                         "keep the package's pin (TF32 off for matmuls and cuDNN); tensorfloat32 sets "
                         "torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32; "
                         "bfloat16 sets torch.set_float32_matmul_precision('medium'). The "
-                        "hand-written kernels compute as they always do, whatever this flag")
+                        "hand-written kernels compute as they always do, whatever this flag. Gate on "
+                        "the card against float32: " + "; ".join(
+                            f"{k} units >= {v['units']} equal, train1 losses within {v['loss_rel']:g} "
+                            "relative" for k, v in MATMUL_PRECISION_BARS.items()))
 
 
 def apply_matmul_precision(choice: str | None) -> None:
@@ -159,9 +179,10 @@ def mesh_flag(p) -> None:
                         "block d on card d*M of this process")
 
 
-def wire_flags(p) -> None:
-    for flag in ("--wire-uint8", "--wire-mulaw"):
-        p.add_argument(flag, action="store_true", help="not ported (ROADMAP.md: do not port)")
+def mulaw_flag(p) -> None:
+    p.add_argument("--wire-mulaw", action="store_true",
+                   help="8-bit mu-law companding on both PCM wire directions (halves the "
+                        "host<->device audio bytes; files on disk stay PCM16)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -255,7 +276,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--feat", default=None, choices=FEATS,
                    help="features the model was trained on (default: the bundle's, else lin)")
     dtype_flags(p)
-    wire_flags(p)
+    mulaw_flag(p)
+    p.add_argument("--wire-uint8", action="store_true",
+                   help="quantize corpus features to uint8 on the host->device wire (per-utterance "
+                        "min/max, dequantized on the device; halves the input bytes; the --from-wavs "
+                        "route has no feature wire and ignores it)")
     p.add_argument("--adaptive-buckets", type=_positive_int, default=None, metavar="K",
                    help="fit <=K length-bucket edges (multiples of 64 frames) to the "
                         "utterances' lengths before converting")
@@ -269,6 +294,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="with --adaptive-buckets K: the planner minimizes padded frames, "
                         "or the rows*frames the dispatches execute (tail rounding, "
                         "--frame-budget caps)")
+    p.add_argument("--dispatch-cost-frames", type=float, default=0.0, metavar="N",
+                   help="with --bucket-cost-model executed: charge each dispatch N frame-rows "
+                        "of overhead in the plan (set high on wire/tunnel-bound hosts where every "
+                        "dispatch costs ~fixed wall time; 0 for locally attached devices)")
     p.add_argument("--device", default="cuda", help="cuda (kernels) or cpu (plain PyTorch)")
     mesh_flag(p)
     global_flags(p)
@@ -309,7 +338,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--feat", default=None, choices=FEATS,
                    help="features the model was trained on (default: the bundle's, else lin)")
     dtype_flags(p)
-    wire_flags(p)
+    mulaw_flag(p)
     p.add_argument("--device", default="cuda", help="cuda (kernels) or cpu (plain PyTorch)")
     mesh_flag(p)
     global_flags(p)
@@ -662,13 +691,6 @@ def _restore_state(args, hps, dev):
     return src.restore(init_state(hps, device=dev), step)
 
 
-def _refuse_wires(args) -> None:
-    for flag in ("wire_uint8", "wire_mulaw"):
-        if getattr(args, flag, False):
-            sys.exit(f"--{flag.replace('_', '-')}: the port does not have it (ROADMAP.md lists the "
-                     "uint8 feature wire and the mu-law PCM wire under 'do not port')")
-
-
 def _need_model_source(args) -> None:
     if not (args.from_export or (args.dataset_path and args.ckpt_dir)):
         sys.exit("pass -dataset_path and -ckpt_dir, or --from-export DIR")
@@ -681,7 +703,6 @@ def _load_converter(args):
     from zerospeech_tts_tpu_torch.convert import Converter
     from zerospeech_tts_tpu_torch.params import from_flax
 
-    _refuse_wires(args)
     dev = _device(args)
     launched = parallel.distributed.launched_world()
     if launched > 1:
@@ -729,6 +750,8 @@ def _load_converter(args):
         encoder_dtype=torch.float32 if args.enc_f32 else None,
         check_numerics=getattr(args, "check_numerics", False),
         devices=devices,
+        wire="uint8" if getattr(args, "wire_uint8", False) else "bf16",
+        pcm_wire="mulaw" if getattr(args, "wire_mulaw", False) else "int16",
     )
     return conv, speakers
 
@@ -752,7 +775,8 @@ def cmd_convert(args):
     opts = dict(sr=conv.acfg.sr, limit=args.limit, units_only=args.units_only,
                 adaptive_buckets=args.adaptive_buckets,
                 bucket_overhead_target=args.bucket_overhead_target,
-                bucket_cost_model=args.bucket_cost_model)
+                bucket_cost_model=args.bucket_cost_model,
+                dispatch_cost_frames=args.dispatch_cost_frames)
     tgts = {t: speakers[t] for t in targets}
     t0 = time.time()
     with maybe_profile(args, "convert") as trace:
@@ -812,7 +836,8 @@ def cmd_serve(args, on_serving=None):
         raise
     host, port = httpd.server_address[:2]
     print(f"serving on http://{host}:{port}  (batch {args.batch_size}, window {args.batch_window_ms}ms, "
-          f"{len(speakers)} speakers, {conv.device}, feat {conv.feat}, {conv.compute_dtype}; "
+          f"{len(speakers)} speakers, {conv.device}, feat {conv.feat}, {conv.compute_dtype}, "
+          f"{conv.pcm_wire} PCM wire; "
           "POST /convert?targets=..., /units; GET /healthz, /speakers)", flush=True)
     try:
         if on_serving is not None:

@@ -20,12 +20,13 @@ configuration, and the decoder's output is f32 from the target denorm on.
 
 Three sources: wavs (``convert_wavs_multi``, ``convert_wav_dir``), the
 port's corpus directory of precomputed features (``convert_features_multi``,
-``convert_corpus``; features cross to the device in bf16, the JAX package's
-feature wire), and units only, without synthesis (``encode_units_from_wavs``,
-``encode_units``, ``--units-only``; always the f32 encoder, as the JAX
-package's units-only programs). Buckets are uniform (``bucket_frames``) or
-fitted to the corpus lengths (``fit_buckets``, ``plan_buckets``), and a
-``frame_budget`` lets short buckets take more rows a dispatch.
+``convert_corpus``; features cross to the device on the feature wire, bf16
+unless ``wire="uint8"``, as the JAX package's), and units only, without
+synthesis (``encode_units_from_wavs``, ``encode_units``, ``--units-only``;
+always the f32 encoder, as the JAX package's units-only programs).
+Buckets are uniform (``bucket_frames``) or fitted to the corpus lengths
+(``fit_buckets``, ``plan_buckets``), and a ``frame_budget`` lets short
+buckets take more rows a dispatch.
 
 Several devices (``devices=[...]``, the JAX Converter's ``mesh`` over the
 ``data`` axis): the encoder and decoder are copied to each device, batch
@@ -35,8 +36,13 @@ contiguous slice a device, each launched on its device (frontend too)
 before any is read back; results come back in row order, so every entry
 point returns what the single-device Converter returns.
 
-Not ported (ROADMAP "do not port"): the uint8/mu-law wires and
-``--dispatch-cost-frames``.
+Two wires, as the JAX Converter's: ``pcm_wire="mulaw"`` (``--wire-mulaw``)
+carries every PCM direction between host and device as 8-bit mu-law codes
+(dsp/mulaw.py: wavs up, synthesised audio down; what the entry points
+return and the files hold stays int16 PCM), and ``wire="uint8"``
+(``--wire-uint8``) quantises each utterance's features to 256 levels over
+its own [min, max] on the host and dequantises them on the device (the
+features route; the wav routes have no feature wire).
 """
 
 from __future__ import annotations
@@ -49,6 +55,9 @@ import torch
 
 from zerospeech_tts_tpu_torch.config import AudioConfig, Hps
 from zerospeech_tts_tpu_torch.dsp import audio as dsp_audio
+from zerospeech_tts_tpu_torch.dsp.mulaw import (
+    mulaw_compress_device, mulaw_compress_host, mulaw_expand_device, mulaw_expand_host,
+)
 from zerospeech_tts_tpu_torch.dsp.wavio import load_wav, save_wav, trim_silence
 from zerospeech_tts_tpu_torch.models import Decoder, Encoder, discretize, unit_bits
 
@@ -216,6 +225,22 @@ def _as_dtype(d) -> torch.dtype:
     raise ValueError(f"compute dtype must be float32 or bfloat16, got {d!r}")
 
 
+def uint8_wire(x: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """A padded f32 feature batch [B, T, F] -> (uint8 codes, lo [B], scale
+    [B]): each row over its own [min, max], zero padding included, scale =
+    max(hi - lo, 1e-6) / 255, codes rint'd and clipped to 0..255 (the JAX
+    Converter's ``_wire_batch``, in the same order of in-place passes).
+    The device reads x = q * scale + lo."""
+    lo = x.min(axis=(1, 2)).astype(np.float32)
+    hi = x.max(axis=(1, 2)).astype(np.float32)
+    scale = np.maximum(hi - lo, 1e-6) / 255.0
+    q = x - lo[:, None, None]
+    np.multiply(q, (1.0 / scale)[:, None, None], out=q)
+    np.rint(q, out=q)
+    np.clip(q, 0.0, 255.0, out=q)
+    return q.astype(np.uint8), lo, scale
+
+
 class Converter:
     """Encoder + decoder on ``device``, converting PCM or feature batches
     per padded length bucket. ``enc_state``/``dec_state`` are the port's
@@ -231,6 +256,12 @@ class Converter:
 
     ``check_numerics``: raise FloatingPointError at the first non-finite
     encoder logit of a true frame (one wait for the device a dispatch).
+
+    ``wire`` (features, host to device): ``"bf16"`` or ``"uint8"`` (per
+    utterance min/max codes, dequantised on the device in the compute
+    dtype, in f32 for units only). ``pcm_wire`` (PCM, both directions):
+    ``"int16"`` or ``"mulaw"`` (8-bit codes; the entry points still return
+    int16). Either names the JAX Converter's option of the same name.
 
     ``devices``: local devices to split each dispatch's rows over (module
     docstring); None means ``[device]``. A device may repeat (the split on
@@ -255,11 +286,17 @@ class Converter:
         encoder_dtype=None,  # the encoder's: None -> compute_dtype
         check_numerics: bool = False,
         devices=None,  # split every dispatch's rows over these devices
+        wire: str = "bf16",  # features, host to device: bf16 | uint8
+        pcm_wire: str = "int16",  # PCM, both directions: int16 | mulaw
     ):
-        assert bucket_frames % hps.downsample == 0
         if feat not in ("lin", "mel"):
             raise ValueError(f"feat must be lin or mel, got {feat!r}")
-        self.feat = feat
+        if wire not in ("bf16", "uint8"):
+            raise ValueError(f"wire must be bf16 or uint8, got {wire!r}")
+        if pcm_wire not in ("int16", "mulaw"):
+            raise ValueError(f"pcm_wire must be int16 or mulaw, got {pcm_wire!r}")
+        assert bucket_frames % hps.downsample == 0
+        self.feat, self.wire, self.pcm_wire = feat, wire, pcm_wire
         self.compute_dtype = _as_dtype(compute_dtype)
         self.encoder_dtype = _as_dtype(encoder_dtype) if encoder_dtype else self.compute_dtype
         self.devices = [torch.device(d) for d in (devices or [device])]
@@ -319,19 +356,21 @@ class Converter:
 
     def fit_buckets(
         self, frame_lengths, max_buckets: int, target_overhead: float | None = None,
-        cost_model: str = "frames",
+        cost_model: str = "frames", dispatch_cost_frames: float = 0.0,
     ) -> list[int]:
         """Fit at most ``max_buckets`` edges (multiples of bucket_frames) to
         the utterances' true frame counts (plan_buckets). ``cost_model``:
         ``"frames"`` minimizes padded frames; ``"executed"`` the rows*frames
         the dispatches run under this Converter's chunking (tail rounding,
-        frame-budget caps)."""
+        frame-budget caps) plus ``dispatch_cost_frames`` frame-rows a
+        dispatch."""
         if cost_model not in ("frames", "executed"):
             raise ValueError(f"cost_model must be frames|executed, got {cost_model!r}")
         self.bucket_edges = plan_buckets(
             frame_lengths, max_buckets, self.bucket_frames,
             min_pad=self._MIN_PAD, target_overhead=target_overhead,
             cap_fn=self._bucket_cap if cost_model == "executed" else None,
+            dispatch_cost=dispatch_cost_frames,
         )
         return self.bucket_edges
 
@@ -384,10 +423,10 @@ class Converter:
 
     def _convert_core(self, dev, x, spk, tgt_mean, tgt_std, tlens):
         """Normalised features x [B, T, F] on ``dev`` (one of the devices)
-        -> (units [B, T/ds, emb] int32, PCM16 [n_tgt, B, (T-1)*hop] int16)
-        there. ``tlens`` ([B] true frame counts) drives the length-masked
-        encoder/decoder so bucket padding never changes the true frames'
-        units or audio."""
+        -> (units [B, T/ds, emb] int32, PCM [n_tgt, B, (T-1)*hop]: int16, or
+        uint8 mu-law codes on the mu-law wire) there. ``tlens`` ([B] true
+        frame counts) drives the length-masked encoder/decoder so bucket
+        padding never changes the true frames' units or audio."""
         hps, acfg = self.hps, self.acfg
         _, conv_encoder, decoder = self._models[dev]
         zlens = (tlens + hps.downsample - 1) // hps.downsample
@@ -411,7 +450,10 @@ class Converter:
         xh = torch.clamp(xh * std_all + mean_all, 0.0, 1.0)
         vocoder = dsp_audio.spectrogram2wav if self.feat == "lin" else dsp_audio.melspectrogram2wav
         wav = vocoder(xh, acfg, n_iters=self.gl_iters)  # [B*n_tgt, n]
-        pcm = torch.clamp(wav * 32767.0, -32768.0, 32767.0).to(torch.int16)
+        if self.pcm_wire == "mulaw":  # the 8-bit companded down-wire
+            pcm = mulaw_compress_device(torch.clamp(wav, -1.0, 1.0))
+        else:
+            pcm = torch.clamp(wav * 32767.0, -32768.0, 32767.0).to(torch.int16)
         return units, pcm.reshape(bsz, n_tgt, -1).transpose(0, 1)
 
     def _encode(self, dev, x, tlens):
@@ -437,10 +479,14 @@ class Converter:
                                      f"rows {rows} of a [{logits.shape[0]}, {logits.shape[1]}] dispatch")
 
     def _wav_features(self, pcm, src_mean, src_std, slens):
-        """int16 PCM [B, n_samp] -> frontend -> source z-norm: (features
-        [B, T, F], true frame counts [B]). ``slens`` ([B] true sample
-        counts) gives exact tail reflection in the frontend."""
-        y = pcm.to(torch.float32) * (1.0 / 32768.0)  # load_wav convention
+        """Wire PCM [B, n_samp] (int16, or mu-law codes) -> frontend ->
+        source z-norm: (features [B, T, F], true frame counts [B]).
+        ``slens`` ([B] true sample counts) gives exact tail reflection in
+        the frontend."""
+        if self.pcm_wire == "mulaw":
+            y = mulaw_expand_device(pcm)
+        else:
+            y = pcm.to(torch.float32) * (1.0 / 32768.0)  # load_wav convention
         mel, mag = dsp_audio.wav_to_features(y, self.acfg, length=slens)
         x = ((mag if self.feat == "lin" else mel) - src_mean[:, None, :]) / src_std[:, None, :]
         return x, 1 + slens // self.acfg.hop_length
@@ -467,11 +513,16 @@ class Converter:
         ``dev`` (the frontend runs there)."""
         return self._wav_features(*(torch.from_numpy(a).to(dev) for a in (pcm, sm, ss, sl)))
 
-    def _wire_features(self, dev, x, tl):
+    def _wire_features(self, dev, x, tl, lo=None, scale=None, dtype=torch.float32):
         """Host rows of a feature dispatch -> (features, true frame counts)
-        on ``dev``; features cross in bf16 (the JAX package's feature
-        wire)."""
-        return torch.from_numpy(x).to(torch.bfloat16).to(dev).to(torch.float32), torch.from_numpy(tl).to(dev)
+        on ``dev``. On the bf16 wire ``x`` crosses in bf16 and is read back
+        in f32; on the uint8 wire ``x`` holds the codes, dequantised there
+        in ``dtype`` as q * scale + lo."""
+        tl = torch.from_numpy(tl).to(dev)
+        if lo is None:
+            return torch.from_numpy(x).to(torch.bfloat16).to(dev).to(torch.float32), tl
+        lo, scale = (torch.from_numpy(a).to(dev).to(dtype)[:, None, None] for a in (lo, scale))
+        return torch.from_numpy(x).to(dev).to(dtype) * scale + lo, tl
 
     def _pcm_chunks(self, wavs, s_mean, s_std):
         """Per dispatch of the trimmed float ``wavs``: (utterance indices,
@@ -480,31 +531,39 @@ class Converter:
         frame counts). Dummy rows are silent and act full-length."""
         acfg, hps = self.acfg, self.hps
         frames = [dsp_audio.n_frames_for(len(w), acfg) for w in wavs]
+        mulaw = self.pcm_wire == "mulaw"
         for tb, chunk, bs_c in self._dispatches(frames, [len(w) for w in wavs]):
             n_samp = tb * acfg.hop_length - 1  # longest signal with tb frames
-            pcm = np.zeros((bs_c, n_samp), np.int16)
+            # mu-law silence is code 128 (code 0 would be full scale negative)
+            pcm = np.full((bs_c, n_samp), 128, np.uint8) if mulaw else np.zeros((bs_c, n_samp), np.int16)
             sm = np.zeros((bs_c, hps.n_feat), np.float32)
             ss = np.ones((bs_c, hps.n_feat), np.float32)
             sl = np.full(bs_c, n_samp, np.int64)
             for j, i in enumerate(chunk):
                 w = np.clip(np.rint(wavs[i] * 32768.0), -32768, 32767).astype(np.int16)
-                pcm[j, : len(w)] = w
+                pcm[j, : len(w)] = mulaw_compress_host(w) if mulaw else w
                 sm[j], ss[j] = s_mean[i], s_std[i]
                 sl[j] = len(w)
             yield chunk, bs_c, (pcm, sm, ss, sl), self._pcm_features
 
-    def _feature_chunks(self, feats_list):
+    def _feature_chunks(self, feats_list, dtype=torch.float32):
         """Per dispatch of normalised [T_i, F] features: as _pcm_chunks,
-        the features crossing in bf16; dummy rows are zeros at full
-        length."""
+        the features crossing on the Converter's wire (uint8: the codes,
+        their lo and scale, dequantised in ``dtype``); dummy rows are zeros
+        at full length."""
         frames = [f.shape[0] for f in feats_list]
+        to_device = lambda dev, *a: self._wire_features(dev, *a, dtype=dtype)  # noqa: E731
         for tb, chunk, bs_c in self._dispatches(frames, frames):
             x = np.zeros((bs_c, tb, self.hps.n_feat), np.float32)
             tl = np.full(bs_c, tb, np.int64)
             for j, i in enumerate(chunk):
                 x[j] = self._pad_frames(feats_list[i])
                 tl[j] = frames[i]
-            yield chunk, bs_c, (x, tl), self._wire_features
+            if self.wire == "uint8":
+                q, lo, scale = uint8_wire(x)
+                yield chunk, bs_c, (q, tl, lo, scale), to_device
+            else:
+                yield chunk, bs_c, (x, tl), to_device
 
     def _launch(self, chunks, core):
         """For each dispatch, ``core(dev, x, tlens)`` on every device's
@@ -528,7 +587,7 @@ class Converter:
     def _run_conversion(self, chunks, n, spk_ids, tgt_names, t_true):
         """Launch the whole path for every chunk first, then read back:
         (units_list, wavs_per_target) trimmed to each utterance's
-        ``t_true`` frames."""
+        ``t_true`` frames, mu-law codes expanded to int16 on the host."""
         if self.stats is not None and tgt_names is None:
             raise ValueError(
                 "speaker_norm is on (Converter has stats) but tgt_names was not given — "
@@ -554,7 +613,8 @@ class Converter:
                 q, r = divmod(j, b)
                 units_out[i] = units[q][r][: -(-t_true[i] // ds)].astype(np.int32)
                 for k in range(len(spk_ids)):
-                    wavs_out[k][i] = pcm[q][k, r][: max(t_true[i] - 1, 1) * hop]
+                    row = pcm[q][k, r][: max(t_true[i] - 1, 1) * hop]
+                    wavs_out[k][i] = mulaw_expand_host(row) if self.pcm_wire == "mulaw" else row
         return units_out, wavs_out
 
     def _run_encoding(self, chunks, n, t_true):
@@ -652,8 +712,8 @@ class Converter:
             )
         feats_list = self._normalized(feats_list, src_speakers)
         t_true = [f.shape[0] for f in feats_list]
-        return self._run_conversion(self._feature_chunks(feats_list), len(feats_list), spk_ids,
-                                    tgt_names, t_true)
+        return self._run_conversion(self._feature_chunks(feats_list, self.compute_dtype), len(feats_list),
+                                    spk_ids, tgt_names, t_true)
 
     def convert_features(self, feats_list: list[np.ndarray], spk_id: int):
         """Single-target convenience wrapper: [(units_i, wav_i)]."""
@@ -710,9 +770,11 @@ def _convert_planned(
     adaptive_buckets: int | None,
     bucket_overhead_target: float | None,
     bucket_cost_model: str,
+    dispatch_cost_frames: float,
 ) -> dict:
     """The shared body of convert_corpus and convert_wav_dir: fit
-    ``adaptive_buckets`` edges to ``true_frames`` for this call only, run
+    ``adaptive_buckets`` edges to ``true_frames`` for this call only
+    (``bucket_cost_model`` and ``dispatch_cost_frames`` as fit_buckets'), run
     ``encode()`` (units only) or ``convert(spk_ids, tgt_names)``, write
     ``<result>/units/<utt>.txt`` per utterance and, unless units only,
     ``<result>/<target>/<utt>.wav`` per target. Returns the counts and the
@@ -723,7 +785,7 @@ def _convert_planned(
     try:
         if adaptive_buckets:
             converter.fit_buckets(true_frames, adaptive_buckets, target_overhead=bucket_overhead_target,
-                                  cost_model=bucket_cost_model)
+                                  cost_model=bucket_cost_model, dispatch_cost_frames=dispatch_cost_frames)
         bucket_stats = _bucket_stats(converter, true_frames)
         if units_only:
             units_list, wavs_per_tgt = encode(), ()
@@ -773,13 +835,15 @@ def convert_corpus(
     adaptive_buckets: int | None = None,
     bucket_overhead_target: float | None = None,
     bucket_cost_model: str = "frames",
+    dispatch_cost_frames: float = 0.0,
 ) -> dict:
     """Corpus conversion and unit extraction from the features of a port
     corpus directory (the Converter's ``feat``; ref --test):
     ``<result>/units/<utt>.txt`` once per utterance and
     ``<result>/<target>/<utt>.wav`` per target (units only: no wavs). Sources are normalised with their own speaker's
     statistics. ``adaptive_buckets=K`` fits <= K edges to these lengths
-    for this call only. The result holds the plan's _bucket_stats."""
+    for this call only (``bucket_cost_model``, ``dispatch_cost_frames``:
+    Converter.fit_buckets). The result holds the plan's _bucket_stats."""
     feats, names, srcs = load_corpus_split(dataset_path, split, limit, feat=converter.feat)
     return _convert_planned(
         converter, names, [f.shape[0] for f in feats], result_dir, target_speakers,
@@ -787,6 +851,7 @@ def convert_corpus(
         lambda spk_ids, tgt_names: converter.convert_features_multi(
             feats, spk_ids, tgt_names=tgt_names, src_speakers=srcs),
         sr, units_only, progress, adaptive_buckets, bucket_overhead_target, bucket_cost_model,
+        dispatch_cost_frames,
     )
 
 
@@ -802,13 +867,15 @@ def convert_wav_dir(
     adaptive_buckets: int | None = None,
     bucket_overhead_target: float | None = None,
     bucket_cost_model: str = "frames",
+    dispatch_cost_frames: float = 0.0,
 ) -> dict:
     """Corpus conversion straight from a directory of wavs (ref --test
     iterates english/test/*.wav): ``<result>/units/<utt>.txt`` once per
     utterance and ``<result>/<target>/<utt>.wav`` per target (units only:
     no wavs). Source speakers are unknown for a flat directory, so
     speaker_norm uses the global statistics. ``adaptive_buckets=K`` fits
-    <= K edges to the trimmed lengths for this call only. The result holds
+    <= K edges to the trimmed lengths for this call only, as
+    convert_corpus. The result holds
     the plan's _bucket_stats."""
     wav_paths = sorted(Path(wav_dir).glob("*.wav"))
     if limit:
@@ -825,6 +892,7 @@ def convert_wav_dir(
         lambda spk_ids, tgt_names: converter.convert_wavs_multi(
             ys, spk_ids, tgt_names=tgt_names if converter.stats is not None else None, trim=False),
         sr, units_only, progress, adaptive_buckets, bucket_overhead_target, bucket_cost_model,
+        dispatch_cost_frames,
     )
 
 

@@ -123,10 +123,23 @@ def load_adam_state(opt: torch.optim.Adam, module: torch.nn.Module, count, mu: d
         }
 
 
+# std of the unit normal cut at +-2: flax's variance_scaling divides by it
+# so that a "truncated_normal" draw keeps the variance it asks for
+TRUNC_STD = 0.87962566103423978
+
+
+def lecun_sigma(fan_in: int) -> float:
+    """sigma of flax's ``lecun_normal`` before the cut at +-2 sigma:
+    sqrt(1 / fan_in) / TRUNC_STD."""
+    return float(np.sqrt(1.0 / fan_in) / TRUNC_STD)
+
+
 def _init_module(module: torch.nn.Module, gen: torch.Generator) -> None:
-    """flax's initialisers in spirit: lecun-normal kernels (std
-    1/sqrt(fan_in)), zero biases, orthogonal recurrent ``wh`` (orthonormal
-    rows), unit-normal embeddings."""
+    """flax's default initialisers, each leaf from ``gen``: Conv and Dense
+    kernels ``lecun_normal`` (a normal of lecun_sigma(fan_in) cut at +-2
+    sigma; fan_in = in x kernel taps), zero biases, orthogonal recurrent
+    ``wh`` (orthonormal rows), and ``nn.Embed``'s speaker embedding, an
+    untruncated normal of std 1/sqrt(features)."""
     with torch.no_grad():
         for name, p in module.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
@@ -135,11 +148,11 @@ def _init_module(module: torch.nn.Module, gen: torch.Generator) -> None:
             elif leaf == "wh":
                 q, r = torch.linalg.qr(torch.randn(p.shape[1], p.shape[0], generator=gen))
                 p.copy_((q * torch.sign(torch.diagonal(r))).T)
-            elif leaf == "embedding":
-                p.copy_(torch.randn(p.shape, generator=gen))
+            elif leaf == "embedding":  # [n_speakers, features]
+                p.copy_(torch.randn(p.shape, generator=gen) / np.sqrt(p.shape[1]))
             else:  # Conv1d/Conv2d [out, in, k..] / Linear [out, in]
-                fan_in = int(np.prod(p.shape[1:]))
-                p.copy_(torch.randn(p.shape, generator=gen) / np.sqrt(fan_in))
+                s = lecun_sigma(int(np.prod(p.shape[1:])))
+                torch.nn.init.trunc_normal_(p, std=s, a=-2 * s, b=2 * s, generator=gen)
 
 
 MODULES = ("enc", "dec", "clf", "dis")

@@ -37,7 +37,8 @@ and an utterance above ``max_frames`` (32,768 frames, ~6.8 min) at submit.
 Start it with ``python -m zerospeech_tts_tpu_torch serve --from-export B``
 (or ``-dataset_path DS -ckpt_dir CK``), ``--warmup-buckets 256,512`` to
 build the kernels and run those buckets before the first client, and the
-Converter's ``--bf16 --enc-f32 --feat --gl-iters`` settings.
+Converter's ``--bf16 --enc-f32 --feat --gl-iters --wire-mulaw`` settings
+(the mu-law wire is the Converter's own: requests and answers stay PCM16).
 """
 
 from __future__ import annotations
