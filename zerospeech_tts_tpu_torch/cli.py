@@ -101,7 +101,9 @@ def global_flags(p) -> None:
     ``_common`` gives every verb but submission)."""
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="write a torch.profiler trace (CPU and CUDA activities, Chrome trace "
-                        "format: DIR/<verb>.pt.trace.json) of training or conversion")
+                        "format: DIR/<verb>.pt.trace.json) of training or conversion, or of serving "
+                        "on every thread from warm to shutdown (read its pauses with "
+                        "python -m zerospeech_tts_tpu_torch.tools.serve_pauses)")
     p.add_argument("--check-numerics", action="store_true",
                    help="raise FloatingPointError at the first non-finite loss or module gradient "
                         "norm of a training step, or encoder logit of a conversion (waits for the "
@@ -132,19 +134,22 @@ def apply_matmul_precision(choice: str | None) -> None:
 
 
 @contextmanager
-def maybe_profile(args, what: str):
+def maybe_profile(args, what: str, all_threads: bool = False):
     """A torch.profiler trace of the body into --profile DIR (as JAX's
     ``_MaybeProfile``); yields the trace's path, or None without the flag
-    (or on a data-parallel rank above 0: rank 0 alone writes files)."""
+    (or on a data-parallel rank above 0: rank 0 alone writes files). The
+    profile records the calling thread, or with ``all_threads`` every
+    thread of the process (the service's worker and handlers)."""
     if not getattr(args, "profile", None) or not parallel.is_primary():
         yield None
         return
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, _ExperimentalConfig, profile
 
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
     path = Path(args.profile) / f"{what}.pt.trace.json"
     path.parent.mkdir(parents=True, exist_ok=True)
-    with profile(activities=acts) as prof:
+    extra = {"experimental_config": _ExperimentalConfig(profile_all_threads=True)} if all_threads else {}
+    with profile(activities=acts, **extra) as prof:
         yield path
     prof.export_chrome_trace(str(path))
     print(f"profiler trace -> {path}", flush=True)
@@ -840,11 +845,13 @@ def cmd_serve(args, on_serving=None):
           f"{conv.pcm_wire} PCM wire; "
           "POST /convert?targets=..., /units; GET /healthz, /speakers)", flush=True)
     try:
-        if on_serving is not None:
-            on_serving(httpd, service)
-        httpd.serve_forever()
-    except KeyboardInterrupt:
-        pass
+        with maybe_profile(args, "serve", all_threads=True):
+            try:
+                if on_serving is not None:
+                    on_serving(httpd, service)
+                httpd.serve_forever()
+            except KeyboardInterrupt:
+                pass
     finally:
         httpd.server_close()
         service.close()

@@ -60,6 +60,7 @@ from zerospeech_tts_tpu_torch.dsp.mulaw import (
 )
 from zerospeech_tts_tpu_torch.dsp.wavio import load_wav, save_wav, trim_silence
 from zerospeech_tts_tpu_torch.models import Decoder, Encoder, discretize, unit_bits
+from zerospeech_tts_tpu_torch.tracing import span
 
 
 def units_text(units: np.ndarray) -> str:
@@ -533,17 +534,18 @@ class Converter:
         frames = [dsp_audio.n_frames_for(len(w), acfg) for w in wavs]
         mulaw = self.pcm_wire == "mulaw"
         for tb, chunk, bs_c in self._dispatches(frames, [len(w) for w in wavs]):
-            n_samp = tb * acfg.hop_length - 1  # longest signal with tb frames
-            # mu-law silence is code 128 (code 0 would be full scale negative)
-            pcm = np.full((bs_c, n_samp), 128, np.uint8) if mulaw else np.zeros((bs_c, n_samp), np.int16)
-            sm = np.zeros((bs_c, hps.n_feat), np.float32)
-            ss = np.ones((bs_c, hps.n_feat), np.float32)
-            sl = np.full(bs_c, n_samp, np.int64)
-            for j, i in enumerate(chunk):
-                w = np.clip(np.rint(wavs[i] * 32768.0), -32768, 32767).astype(np.int16)
-                pcm[j, : len(w)] = mulaw_compress_host(w) if mulaw else w
-                sm[j], ss[j] = s_mean[i], s_std[i]
-                sl[j] = len(w)
+            with span("convert.pack"):  # closed before the yield: the launch is not packing
+                n_samp = tb * acfg.hop_length - 1  # longest signal with tb frames
+                # mu-law silence is code 128 (code 0 would be full scale negative)
+                pcm = np.full((bs_c, n_samp), 128, np.uint8) if mulaw else np.zeros((bs_c, n_samp), np.int16)
+                sm = np.zeros((bs_c, hps.n_feat), np.float32)
+                ss = np.ones((bs_c, hps.n_feat), np.float32)
+                sl = np.full(bs_c, n_samp, np.int64)
+                for j, i in enumerate(chunk):
+                    w = np.clip(np.rint(wavs[i] * 32768.0), -32768, 32767).astype(np.int16)
+                    pcm[j, : len(w)] = mulaw_compress_host(w) if mulaw else w
+                    sm[j], ss[j] = s_mean[i], s_std[i]
+                    sl[j] = len(w)
             yield chunk, bs_c, (pcm, sm, ss, sl), self._pcm_features
 
     def _feature_chunks(self, feats_list, dtype=torch.float32):
@@ -554,16 +556,18 @@ class Converter:
         frames = [f.shape[0] for f in feats_list]
         to_device = lambda dev, *a: self._wire_features(dev, *a, dtype=dtype)  # noqa: E731
         for tb, chunk, bs_c in self._dispatches(frames, frames):
-            x = np.zeros((bs_c, tb, self.hps.n_feat), np.float32)
-            tl = np.full(bs_c, tb, np.int64)
-            for j, i in enumerate(chunk):
-                x[j] = self._pad_frames(feats_list[i])
-                tl[j] = frames[i]
-            if self.wire == "uint8":
-                q, lo, scale = uint8_wire(x)
-                yield chunk, bs_c, (q, tl, lo, scale), to_device
-            else:
-                yield chunk, bs_c, (x, tl), to_device
+            with span("convert.pack"):
+                x = np.zeros((bs_c, tb, self.hps.n_feat), np.float32)
+                tl = np.full(bs_c, tb, np.int64)
+                for j, i in enumerate(chunk):
+                    x[j] = self._pad_frames(feats_list[i])
+                    tl[j] = frames[i]
+                if self.wire == "uint8":
+                    q, lo, scale = uint8_wire(x)
+                    arrays = (q, tl, lo, scale)
+                else:
+                    arrays = (x, tl)
+            yield chunk, bs_c, arrays, to_device
 
     def _launch(self, chunks, core):
         """For each dispatch, ``core(dev, x, tlens)`` on every device's
@@ -571,10 +575,11 @@ class Converter:
         indices, [each slice's outputs])]."""
         inflight = []
         for chunk, bs_c, arrays, to_device in chunks:
-            parts = []
-            for dev, rows in self._slices(bs_c):
-                x, tlens = to_device(dev, *(a[rows] for a in arrays))
-                parts.append(core(dev, x, tlens))
+            with span("convert.launch"):
+                parts = []
+                for dev, rows in self._slices(bs_c):
+                    x, tlens = to_device(dev, *(a[rows] for a in arrays))
+                    parts.append(core(dev, x, tlens))
             inflight.append((chunk, parts))
         return inflight
 
@@ -606,15 +611,16 @@ class Converter:
         units_out: list = [None] * n
         wavs_out: list[list] = [[None] * n for _ in spk_ids]
         for chunk, parts in inflight:  # row j is row j % b of slice j // b: no concatenating copy
-            units = [u.cpu().numpy() for u, _ in parts]
-            pcm = [p.cpu().numpy() for _, p in parts]  # each [n_tgt, b, n]
-            b = units[0].shape[0]
-            for j, i in enumerate(chunk):
-                q, r = divmod(j, b)
-                units_out[i] = units[q][r][: -(-t_true[i] // ds)].astype(np.int32)
-                for k in range(len(spk_ids)):
-                    row = pcm[q][k, r][: max(t_true[i] - 1, 1) * hop]
-                    wavs_out[k][i] = mulaw_expand_host(row) if self.pcm_wire == "mulaw" else row
+            with span("convert.readback"):
+                units = [u.cpu().numpy() for u, _ in parts]
+                pcm = [p.cpu().numpy() for _, p in parts]  # each [n_tgt, b, n]
+                b = units[0].shape[0]
+                for j, i in enumerate(chunk):
+                    q, r = divmod(j, b)
+                    units_out[i] = units[q][r][: -(-t_true[i] // ds)].astype(np.int32)
+                    for k in range(len(spk_ids)):
+                        row = pcm[q][k, r][: max(t_true[i] - 1, 1) * hop]
+                        wavs_out[k][i] = mulaw_expand_host(row) if self.pcm_wire == "mulaw" else row
         return units_out, wavs_out
 
     def _run_encoding(self, chunks, n, t_true):
@@ -622,16 +628,18 @@ class Converter:
         ds = self.hps.downsample
         out: list = [None] * n
         for chunk, parts in inflight:
-            units = [u.cpu().numpy() for u in parts]
-            b = units[0].shape[0]
-            for j, i in enumerate(chunk):
-                q, r = divmod(j, b)
-                out[i] = units[q][r][: -(-t_true[i] // ds)].astype(np.int32)
+            with span("convert.readback"):
+                units = [u.cpu().numpy() for u in parts]
+                b = units[0].shape[0]
+                for j, i in enumerate(chunk):
+                    q, r = divmod(j, b)
+                    out[i] = units[q][r][: -(-t_true[i] // ds)].astype(np.int32)
         return out
 
     def _trimmed(self, wavs, trim: bool):
-        wavs = [np.asarray(w, np.float32) for w in wavs]
-        return [trim_silence(w, self.acfg.top_db) for w in wavs] if trim else wavs
+        with span("convert.trim"):
+            wavs = [np.asarray(w, np.float32) for w in wavs]
+            return [trim_silence(w, self.acfg.top_db) for w in wavs] if trim else wavs
 
     # ------------------------------------------------------------- entries
 
@@ -650,11 +658,12 @@ class Converter:
         is utterance i's {0,1} int32 [ceil(t/ds), emb] array,
         wavs_per_target[k][i] its int16 PCM for target k. With speaker_norm
         on, sources default to the '__global__' statistics."""
-        wavs = self._trimmed(wavs, trim)
-        s_mean, s_std = self._src_stats(len(wavs), src_speakers)
-        t_true = [dsp_audio.n_frames_for(len(w), self.acfg) for w in wavs]
-        return self._run_conversion(self._pcm_chunks(wavs, s_mean, s_std), len(wavs), spk_ids,
-                                    tgt_names, t_true)
+        with span("convert.convert_wavs_multi"):
+            wavs = self._trimmed(wavs, trim)
+            s_mean, s_std = self._src_stats(len(wavs), src_speakers)
+            t_true = [dsp_audio.n_frames_for(len(w), self.acfg) for w in wavs]
+            return self._run_conversion(self._pcm_chunks(wavs, s_mean, s_std), len(wavs), spk_ids,
+                                        tgt_names, t_true)
 
     @torch.inference_mode()
     def encode_units_from_wavs(
@@ -668,10 +677,11 @@ class Converter:
         encoder -> MBV bits, bucketed and chunked as convert_wavs_multi,
         so its units are those of the full conversion. Sources default to
         the '__global__' statistics."""
-        wavs = self._trimmed(wavs, trim)
-        s_mean, s_std = self._src_stats(len(wavs), src_speakers)
-        t_true = [dsp_audio.n_frames_for(len(w), self.acfg) for w in wavs]
-        return self._run_encoding(self._pcm_chunks(wavs, s_mean, s_std), len(wavs), t_true)
+        with span("convert.encode_units_from_wavs"):
+            wavs = self._trimmed(wavs, trim)
+            s_mean, s_std = self._src_stats(len(wavs), src_speakers)
+            t_true = [dsp_audio.n_frames_for(len(w), self.acfg) for w in wavs]
+            return self._run_encoding(self._pcm_chunks(wavs, s_mean, s_std), len(wavs), t_true)
 
     @torch.inference_mode()
     def encode_units(self, feats_list: list[np.ndarray], src_speakers=None) -> list[np.ndarray]:
@@ -687,9 +697,10 @@ class Converter:
                 "statistics. Pass the source speaker per utterance, or build the Converter "
                 "with stats=None to opt out."
             )
-        feats_list = self._normalized(feats_list, src_speakers)
-        t_true = [f.shape[0] for f in feats_list]
-        return self._run_encoding(self._feature_chunks(feats_list), len(feats_list), t_true)
+        with span("convert.encode_units"):
+            feats_list = self._normalized(feats_list, src_speakers)
+            t_true = [f.shape[0] for f in feats_list]
+            return self._run_encoding(self._feature_chunks(feats_list), len(feats_list), t_true)
 
     @torch.inference_mode()
     def convert_features_multi(
@@ -710,10 +721,11 @@ class Converter:
                 "per-utterance source speakers and per-target names, or build the Converter "
                 "with stats=None to opt out."
             )
-        feats_list = self._normalized(feats_list, src_speakers)
-        t_true = [f.shape[0] for f in feats_list]
-        return self._run_conversion(self._feature_chunks(feats_list, self.compute_dtype), len(feats_list),
-                                    spk_ids, tgt_names, t_true)
+        with span("convert.convert_features_multi"):
+            feats_list = self._normalized(feats_list, src_speakers)
+            t_true = [f.shape[0] for f in feats_list]
+            return self._run_conversion(self._feature_chunks(feats_list, self.compute_dtype),
+                                        len(feats_list), spk_ids, tgt_names, t_true)
 
     def convert_features(self, feats_list: list[np.ndarray], spk_id: int):
         """Single-target convenience wrapper: [(units_i, wav_i)]."""

@@ -42,6 +42,7 @@ from zerospeech_tts_tpu_torch.data.corpus import load_speaker_map, load_split
 from zerospeech_tts_tpu_torch.data.device_dataset import check_speaker_ids
 from zerospeech_tts_tpu_torch.data.speaker_norm import SpeakerStats
 from zerospeech_tts_tpu_torch.parallel.mesh import batch_slice
+from zerospeech_tts_tpu_torch.tracing import span
 
 
 class SegmentLoader:
@@ -189,7 +190,8 @@ class SegmentLoader:
 
     def __next__(self) -> dict:
         if self._thread is not None:
-            b = self._q.get()
+            with span("loader.wait"):
+                b = self._q.get()
             if isinstance(b, Exception):
                 raise b
             return b

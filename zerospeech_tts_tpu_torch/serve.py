@@ -18,11 +18,18 @@ concurrent requests micro-batch onto it:
   bad input cannot fail its companions; a ValueError or KeyError is the
   request's own, and any other error in two solo retries fails the rest
   of the batch fast. ``dispatches`` counts Converter calls, ``served``
-  requests answered.
+  requests answered; ``queue_wait_s`` sums the dispatched requests' waits
+  from submit to their batch's pop, ``window_wait_s`` the worker's seconds
+  in micro-batch windows and ``dispatch_s`` its seconds in Converter calls
+  (cumulative: an operator takes rates between two reads). Under a
+  ``torch.profiler`` profile of every thread (``serve --profile DIR``)
+  the worker records the spans ``serve.window`` and ``serve.dispatch``
+  (tracing.py); ``tools/serve_pauses.py`` reads them.
 * :func:`serve_http` — a ``ThreadingHTTPServer``. Handler threads block on
   their request's future, so the worker sees every request in flight:
 
-      GET  /healthz           -> {"ok": true, platform, device, speakers, dispatches, served}
+      GET  /healthz           -> {"ok": true, platform, device, speakers, dispatches, served,
+                                  queue_wait_s, window_wait_s, dispatch_s}
       GET  /speakers          -> {"speakers": [...]}
       POST /convert?targets=V001,V002[&trim=0]   body: WAV bytes
       POST /units[?trim=0]                        body: WAV bytes
@@ -59,6 +66,7 @@ import numpy as np
 from zerospeech_tts_tpu_torch.convert import units_text
 from zerospeech_tts_tpu_torch.dsp.audio import n_frames_for
 from zerospeech_tts_tpu_torch.dsp.wavio import load_wav, resample, trim_silence
+from zerospeech_tts_tpu_torch.tracing import span
 
 MAX_TARGETS = 16  # target speakers a request: bounds one dispatch's decoder rows
 
@@ -66,13 +74,14 @@ MAX_TARGETS = 16  # target speakers a request: bounds one dispatch's decoder row
 class _Request:
     """One utterance waiting for a dispatch."""
 
-    __slots__ = ("wav", "key", "seq", "future")
+    __slots__ = ("wav", "key", "seq", "future", "t_submit")
 
     def __init__(self, wav: np.ndarray, key: tuple, seq: int):
         self.wav = wav
         self.key = key
         self.seq = seq
         self.future = Future()
+        self.t_submit = time.monotonic()
 
     def result(self, timeout: float | None = None):
         try:
@@ -108,6 +117,9 @@ class ConversionService:
         self.max_frames = max_frames  # 0: unlimited
         self.dispatches = 0  # Converter calls
         self.served = 0  # requests answered
+        self.queue_wait_s = 0.0  # the worker's counters: seconds, cumulative
+        self.window_wait_s = 0.0
+        self.dispatch_s = 0.0
         self._seq = 0
         self._queues: dict[tuple, deque[_Request]] = {}
         self._cv = threading.Condition()
@@ -204,13 +216,18 @@ class ConversionService:
                 if key is None and self._stopping:
                     return
                 q = self._queues[key]
-                deadline = time.monotonic() + self.window_s  # the micro-batch window
-                while len(q) < self.max_batch:
-                    remaining = deadline - time.monotonic()
-                    if remaining <= 0:
-                        break
-                    self._cv.wait(timeout=remaining)
-                batch = [q.popleft() for _ in range(min(len(q), self.max_batch))]
+                t0 = time.monotonic()
+                with span("serve.window"):
+                    deadline = t0 + self.window_s  # the micro-batch window
+                    while len(q) < self.max_batch:
+                        remaining = deadline - time.monotonic()
+                        if remaining <= 0:
+                            break
+                        self._cv.wait(timeout=remaining)
+                    batch = [q.popleft() for _ in range(min(len(q), self.max_batch))]
+                t1 = time.monotonic()
+                self.window_wait_s += t1 - t0
+                self.queue_wait_s += sum(t1 - r.t_submit for r in batch)
                 if not q:
                     del self._queues[key]  # drained keys must not accumulate
             try:
@@ -249,16 +266,22 @@ class ConversionService:
     def _run(self, key: tuple, batch: list[_Request]) -> None:
         conv = self.converter
         wavs = [r.wav for r in batch]
-        if key == ():  # units only
-            units = conv.encode_units_from_wavs(wavs, trim=False)
-            self.dispatches += 1
+        t0 = time.monotonic()
+        try:
+            with span("serve.dispatch"):
+                if key == ():  # units only
+                    units = conv.encode_units_from_wavs(wavs, trim=False)
+                else:
+                    units, wavs_out = conv.convert_wavs_multi(
+                        wavs, [self.speakers[t] for t in key],
+                        tgt_names=list(key) if conv.stats is not None else None, trim=False,
+                    )
+        finally:
+            self.dispatch_s += time.monotonic() - t0
+        self.dispatches += 1
+        if key == ():
             results = [{"units": u} for u in units]
         else:
-            units, wavs_out = conv.convert_wavs_multi(
-                wavs, [self.speakers[t] for t in key],
-                tgt_names=list(key) if conv.stats is not None else None, trim=False,
-            )
-            self.dispatches += 1
             results = [{"units": units[i], "wavs": {t: wavs_out[k][i] for k, t in enumerate(key)}}
                        for i in range(len(batch))]
         for r, res in zip(batch, results):  # all computed before any is resolved
@@ -299,7 +322,9 @@ class _Handler(BaseHTTPRequestHandler):
             dev = svc.converter.device
             self._json(200, {"ok": True, "platform": "gpu" if dev.type == "cuda" else dev.type,
                              "device": str(dev), "speakers": len(svc.speakers),
-                             "dispatches": svc.dispatches, "served": svc.served})
+                             "dispatches": svc.dispatches, "served": svc.served,
+                             "queue_wait_s": svc.queue_wait_s, "window_wait_s": svc.window_wait_s,
+                             "dispatch_s": svc.dispatch_s})
         elif path == "/speakers":
             self._json(200, {"speakers": sorted(svc.speakers)})
         else:

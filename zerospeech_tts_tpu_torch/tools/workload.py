@@ -1,7 +1,6 @@
-"""The seeded flagship workloads that ``chip_smoke.py``,
-``tools/profile_slice.py`` and ``tools/profile_train.py`` run, and the
-measurement helpers they share (CUDA-event timer, synchronized wall
-clock, card name, profiler kernel rows, a control for kernel 2's bf16
+"""The seeded flagship workloads that ``chip_smoke.py`` and the card tests
+(``tests/test_torch_cuda.py``) run, and the helpers they share (CUDA-event
+timer, card name, full-scale test signals, a control for kernel 2's bf16
 mode).
 
 Conversion: 8 synthetic "voiced" wavs of 1.5-6.4 s converted to V001 and
@@ -15,7 +14,6 @@ such wavs of 1-8 s plus one of 27 s (over 2,048 frames).
 from __future__ import annotations
 
 import subprocess
-import time
 from pathlib import Path
 
 import numpy as np
@@ -128,42 +126,11 @@ def gru_scan_bf16_state(xw, wh, bh, lengths=None, *, reverse: bool = False):
     return ys
 
 
-def sync_wall(fn) -> float:
-    """Host seconds of fn(), from a synchronized start to a synchronized end."""
-    import torch
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    return time.perf_counter() - t0
-
-
 def card() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     return smi.stdout.strip()
-
-
-def device_rows(prof) -> list[dict]:
-    """The kernel rows of a ``torch.profiler`` trace, longest first:
-    {"name", "ms", "count"}. Host ranges (autograd functions) and GPU-side
-    user annotations (``Optimizer.step#Adam.step``, the name of a host
-    range) are left out: they span kernels that have rows of their own."""
-    from torch.autograd import DeviceType
-
-    events = prof.key_averages()
-    host_keys = {e.key for e in events if e.device_type != DeviceType.CUDA}
-    rows = []
-    for e in events:
-        dev = getattr(e, "self_device_time_total", None)
-        if dev is None:
-            dev = getattr(e, "self_cuda_time_total", 0)
-        if (dev > 0 and e.device_type == DeviceType.CUDA and e.key not in host_keys
-                and not getattr(e, "is_user_annotation", False)):
-            rows.append(dict(name=e.key[:100], ms=dev / 1e3, count=e.count))
-    return sorted(rows, key=lambda r: -r["ms"])
 
 
 TRAIN_SPEAKERS = ("S001", "S002", "S003", "S004", "V001", "V002")

@@ -67,6 +67,7 @@ from zerospeech_tts_tpu_torch.models.layers import Noise
 from zerospeech_tts_tpu_torch.models.mbv import discretize
 from zerospeech_tts_tpu_torch.params import MODULES, init_modules
 from zerospeech_tts_tpu_torch.parallel.distributed import all_gather_rows, all_reduce_mean_
+from zerospeech_tts_tpu_torch.tracing import span
 
 PAIR_SEP_MARGIN = 0.2  # min mean |z_t - z_{t+n/2}|: anti-collapse floor of the pair term
 
@@ -203,25 +204,27 @@ class Solver:
         after the Adam step the module's gathered weights and the
         gradients are freed."""
         params = {n: list(state.modules[n].parameters()) for n in names}
-        grads = iter(torch.autograd.grad(loss, [p for n in names for p in params[n]]))
-        mx = self.hps.max_grad_norm
-        for n in names:
-            gs = [next(grads) for _ in params[n]]
-            if self.group is not None:  # one all_reduce a module: the mean over the ranks
-                flat = self._grad_mean(torch.cat([g.reshape(-1) for g in gs]))
-                gs = [f.view_as(g) for f, g in zip(flat.split([g.numel() for g in gs]), gs)]
-            norm = torch.sqrt(sum((g * g).sum() for g in gs))
-            self.grad_norms[n] = norm
-            scale = torch.where(norm < mx, torch.ones_like(norm), mx / norm)
-            if state.shards is None:
-                for p, g in zip(params[n], gs):
-                    p.grad = g * scale
-            else:
-                state.shards.set_grads(n, gs, scale)
-        for n in names:
-            state.opts[n].step()
-            if state.shards is not None:
-                state.shards.release(state, n)
+        with span("solver.backward"):
+            grads = iter(torch.autograd.grad(loss, [p for n in names for p in params[n]]))
+        with span("solver.update"):
+            mx = self.hps.max_grad_norm
+            for n in names:
+                gs = [next(grads) for _ in params[n]]
+                if self.group is not None:  # one all_reduce a module: the mean over the ranks
+                    flat = self._grad_mean(torch.cat([g.reshape(-1) for g in gs]))
+                    gs = [f.view_as(g) for f, g in zip(flat.split([g.numel() for g in gs]), gs)]
+                norm = torch.sqrt(sum((g * g).sum() for g in gs))
+                self.grad_norms[n] = norm
+                scale = torch.where(norm < mx, torch.ones_like(norm), mx / norm)
+                if state.shards is None:
+                    for p, g in zip(params[n], gs):
+                        p.grad = g * scale
+                else:
+                    state.shards.set_grads(n, gs, scale)
+            for n in names:
+                state.opts[n].step()
+                if state.shards is not None:
+                    state.shards.release(state, n)
 
     def _grad_mean(self, flat: torch.Tensor) -> torch.Tensor:
         """A module's flattened gradient, averaged over the ranks in place."""
@@ -283,13 +286,14 @@ class Solver:
     def step_pretrain_ae(self, state: TrainState, batch: dict, noise=None) -> dict:
         """Reconstruction warm-up of encoder + decoder (+ the pair term)."""
         h, noise = self.hps, self._noise(state, noise)
-        z, z2 = self._ae_latents(state, batch, noise)
-        l_rec = _abs(state.dec(z, batch["spk"]) - batch["x"]).mean()
-        loss, metrics = l_rec, {"loss_rec": l_rec}
-        if z2 is not None:
-            l_pair = self.pair_consistency(z, z2, batch["pair_dt"])
-            loss = loss + h.lambda_pair * l_pair
-            metrics["loss_pair"] = l_pair
+        with span("solver.forward"):
+            z, z2 = self._ae_latents(state, batch, noise)
+            l_rec = _abs(state.dec(z, batch["spk"]) - batch["x"]).mean()
+            loss, metrics = l_rec, {"loss_rec": l_rec}
+            if z2 is not None:
+                l_pair = self.pair_consistency(z, z2, batch["pair_dt"])
+                loss = loss + h.lambda_pair * l_pair
+                metrics["loss_pair"] = l_pair
         self._update(state, ("enc", "dec"), loss)
         state.end_step()
         return self._metrics(metrics)
@@ -297,10 +301,11 @@ class Solver:
     def step_pretrain_clf(self, state: TrainState, batch: dict, noise=None) -> dict:
         """Speaker classifier on stop-gradient (frozen encoder) latents."""
         h, noise = self.hps, self._noise(state, noise)
-        with torch.no_grad():
-            z = self._encode(state.enc, batch["x"], noise)
-        logits = state.clf(z, train=True, noise=noise)
-        l_clf = h.alpha_dis * F.cross_entropy(logits, batch["spk"])
+        with span("solver.forward"):
+            with torch.no_grad():
+                z = self._encode(state.enc, batch["x"], noise)
+            logits = state.clf(z, train=True, noise=noise)
+            l_clf = h.alpha_dis * F.cross_entropy(logits, batch["spk"])
         self._update(state, ("clf",), l_clf)
         state.end_step()
         return self._metrics({"loss_clf": l_clf, "acc_clf": _acc(logits.detach(), batch["spk"])})
@@ -313,29 +318,31 @@ class Solver:
         two latents are the same sample, so here (a) reuses (b)'s latents;
         with the pair, (a) encodes x alone with draws of its own."""
         h, noise = self.hps, self._noise(state, noise)
-        x, spk = batch["x"], batch["spk"]
-        alpha = self.alpha(state.step, state.train_start)
-        if self._has_pair(batch):
-            with torch.no_grad():
-                z_sg = self._encode(state.enc, x, noise)
-            z, z2 = self._ae_latents(state, batch, noise)
-        else:
-            z, z2 = self._ae_latents(state, batch, noise)
-            z_sg = z.detach()
+        with span("solver.forward"):
+            x, spk = batch["x"], batch["spk"]
+            alpha = self.alpha(state.step, state.train_start)
+            if self._has_pair(batch):
+                with torch.no_grad():
+                    z_sg = self._encode(state.enc, x, noise)
+                z, z2 = self._ae_latents(state, batch, noise)
+            else:
+                z, z2 = self._ae_latents(state, batch, noise)
+                z_sg = z.detach()
 
-        clf_logits = state.clf(z_sg, train=True, noise=noise)
-        l_clf = h.alpha_dis * F.cross_entropy(clf_logits, spk)
+            clf_logits = state.clf(z_sg, train=True, noise=noise)
+            l_clf = h.alpha_dis * F.cross_entropy(clf_logits, spk)
         self._update(state, ("clf",), l_clf)
 
-        l_rec = _abs(state.dec(z, spk) - x).mean()
-        l_adv = F.cross_entropy(state.clf(z, train=False), spk)  # the encoder wants this large
-        loss = l_rec - alpha * l_adv
-        metrics = {"loss_rec": l_rec, "loss_clf": l_clf, "loss_adv": l_adv,
-                   "acc_clf": _acc(clf_logits.detach(), spk)}
-        if z2 is not None:
-            l_pair = self.pair_consistency(z, z2, batch["pair_dt"])
-            loss = loss + h.lambda_pair * l_pair
-            metrics["loss_pair"] = l_pair
+        with span("solver.forward"):
+            l_rec = _abs(state.dec(z, spk) - x).mean()
+            l_adv = F.cross_entropy(state.clf(z, train=False), spk)  # the encoder wants this large
+            loss = l_rec - alpha * l_adv
+            metrics = {"loss_rec": l_rec, "loss_clf": l_clf, "loss_adv": l_adv,
+                       "acc_clf": _acc(clf_logits.detach(), spk)}
+            if z2 is not None:
+                l_pair = self.pair_consistency(z, z2, batch["pair_dt"])
+                loss = loss + h.lambda_pair * l_pair
+                metrics["loss_pair"] = l_pair
         self._update(state, ("enc", "dec"), loss)
         state.end_step()
         out = self._metrics(metrics)
@@ -369,21 +376,23 @@ class Solver:
         takes per-sample critic gradients (critic in eval mode) at random
         mixes of real and fake."""
         h, noise = self.hps, self._noise(state, noise)
-        x_src, x_real, spk_real = batch["x"], batch["x_real"], batch["spk_real"]
-        spk_tgt = self._target_speakers(spk_real, noise)
-        with torch.no_grad():
-            x_fake = state.dec(self._encode(state.enc, x_src, noise), spk_tgt)
-        patch_real, cls_real = state.dis(x_real, train=True, noise=noise)
-        patch_fake, _ = state.dis(x_fake, train=True, noise=noise)
-        w_dist = patch_real.mean() - patch_fake.mean()
-        eps = noise.uniform((x_real.shape[0], 1, 1), x_real.device)
-        x_hat = (eps * x_real + (1.0 - eps) * x_fake).requires_grad_(True)
-        p_hat, _ = state.dis(x_hat, train=False)
-        (g_int,) = torch.autograd.grad(p_hat.mean(dim=(1, 2)).sum(), x_hat, create_graph=True)
-        gnorm = torch.sqrt((g_int * g_int).sum(dim=(1, 2)) + 1e-12)
-        gp = ((gnorm - 1.0) ** 2).mean()
-        l_cls = F.cross_entropy(cls_real, spk_real)
-        loss = h.beta_dis * (-w_dist) + h.lambda_ * gp + h.beta_clf * l_cls
+        with span("solver.forward"):
+            x_src, x_real, spk_real = batch["x"], batch["x_real"], batch["spk_real"]
+            spk_tgt = self._target_speakers(spk_real, noise)
+            with torch.no_grad():
+                x_fake = state.dec(self._encode(state.enc, x_src, noise), spk_tgt)
+            patch_real, cls_real = state.dis(x_real, train=True, noise=noise)
+            patch_fake, _ = state.dis(x_fake, train=True, noise=noise)
+            w_dist = patch_real.mean() - patch_fake.mean()
+            eps = noise.uniform((x_real.shape[0], 1, 1), x_real.device)
+            x_hat = (eps * x_real + (1.0 - eps) * x_fake).requires_grad_(True)
+            p_hat, _ = state.dis(x_hat, train=False)
+            with span("solver.penalty_grad"):
+                (g_int,) = torch.autograd.grad(p_hat.mean(dim=(1, 2)).sum(), x_hat, create_graph=True)
+            gnorm = torch.sqrt((g_int * g_int).sum(dim=(1, 2)) + 1e-12)
+            gp = ((gnorm - 1.0) ** 2).mean()
+            l_cls = F.cross_entropy(cls_real, spk_real)
+            loss = h.beta_dis * (-w_dist) + h.lambda_ * gp + h.beta_clf * l_cls
         self._update(state, ("dis",), loss)
         state.end_step()
         return self._metrics({"loss_d": loss, "w_dist": w_dist, "grad_penalty": gp, "loss_d_cls": l_cls,
@@ -394,16 +403,17 @@ class Solver:
         head on the drawn target (+ beta_rec x a same-speaker
         reconstruction anchor when beta_rec > 0)."""
         h, noise = self.hps, self._noise(state, noise)
-        x_src = batch["x"]
-        spk_tgt = self._target_speakers(batch["spk_real"], noise)
-        with torch.no_grad():
-            z = self._encode(state.enc, x_src, noise)
-        patch_fake, cls_fake = state.dis(state.dec(z, spk_tgt), train=False)
-        l_adv = -patch_fake.mean()
-        l_cls = F.cross_entropy(cls_fake, spk_tgt)
-        loss = h.beta_gen * l_adv + h.beta_clf * l_cls
-        if h.beta_rec > 0:
-            loss = loss + h.beta_rec * _abs(state.dec(z, batch["spk"]) - x_src).mean()
+        with span("solver.forward"):
+            x_src = batch["x"]
+            spk_tgt = self._target_speakers(batch["spk_real"], noise)
+            with torch.no_grad():
+                z = self._encode(state.enc, x_src, noise)
+            patch_fake, cls_fake = state.dis(state.dec(z, spk_tgt), train=False)
+            l_adv = -patch_fake.mean()
+            l_cls = F.cross_entropy(cls_fake, spk_tgt)
+            loss = h.beta_gen * l_adv + h.beta_clf * l_cls
+            if h.beta_rec > 0:
+                loss = loss + h.beta_rec * _abs(state.dec(z, batch["spk"]) - x_src).mean()
         self._update(state, ("dec",), loss)
         state.end_step()
         return self._metrics({"loss_g": loss, "loss_g_adv": l_adv, "loss_g_cls": l_cls})
@@ -444,11 +454,15 @@ class Solver:
         want_pairs = pairs and mode in ("pretrain_AE", "train") and h.lambda_pair > 0
 
         if hasattr(data, "sample_batch"):
-            def sample(p=False):
+            def draw(p):
                 return data.sample_batch(state.gen, pairs=p)
         else:
-            def sample(p=False):
+            def draw(p):
                 return next(data)
+
+        def sample(p=False):
+            with span("solver.sample"):
+                return draw(p)
 
         def step(fn, batch):
             self.grad_norms.clear()  # this step's modules only
