@@ -6,9 +6,13 @@ float, any width) and resampled with scipy.signal.resample_poly when the
 file rate differs from the target. ``trim_silence`` reimplements
 librosa.effects.trim semantics (frame RMS in dB relative to the signal's
 peak RMS, threshold top_db, frame_length=2048 / hop_length=512 defaults).
+Its frame RMS sums the squares of each hop block once and builds every
+frame from the block sums in the order numpy's pairwise sum of the frame
+takes, so it equals the gather over every frame bit for bit (the gather
+stays for arguments whose frames do not split on block edges).
 
-A copy of ``zerospeech_tts_tpu/dsp/wavio.py`` (numpy/scipy only), so the
-PyTorch port reads and writes wavs without importing the JAX package.
+Otherwise a copy of ``zerospeech_tts_tpu/dsp/wavio.py`` (numpy/scipy only),
+so the PyTorch port reads and writes wavs without importing the JAX package.
 """
 
 from __future__ import annotations
@@ -62,14 +66,54 @@ def save_wav(path: str | Path, y: np.ndarray, sr: int) -> None:
     scipy.io.wavfile.write(str(path), sr, y)
 
 
+# frame RMS computations (one a trim_silence call) by the path _frame_rms took
+_trims = {"blocks": 0, "gather": 0}
+
+
+def trim_counts() -> dict[str, int]:
+    """How many frame RMS computations took the block path and the gather path."""
+    return dict(_trims)
+
+
+def _blocks_fit(y: np.ndarray, frame_length: int, hop_length: int) -> bool:
+    """Whether numpy's pairwise sum of a frame splits on hop-block edges:
+    it halves a sum of more than 128 elements at a multiple of 8, so a frame
+    of hop x 2^j, with hop >= 128 a multiple of 8, is summed as a tree of
+    whole blocks. float32 and float64 are the dtypes np.mean sums in."""
+    k = frame_length // hop_length
+    return (y.dtype in (np.float32, np.float64) and hop_length >= 128 and hop_length % 8 == 0
+            and k >= 1 and k * hop_length == frame_length and k & (k - 1) == 0)
+
+
 def _frame_rms(y: np.ndarray, frame_length: int, hop_length: int) -> np.ndarray:
-    """Center-padded frame RMS, matching librosa.feature.rms defaults."""
+    """Center-padded frame RMS, matching librosa.feature.rms defaults.
+
+    Where the frame is a power-of-two number of hops, each frame's sum of
+    squares is built from the pairwise sums of its hop blocks in the order
+    numpy's own sum of the frame takes ((b0 + b1) + (b2 + b3) for 2048 / 512),
+    so the result equals the gather formula's bit for bit while each sample
+    is squared and summed once, not frame_length / hop_length times."""
+    y = np.asarray(y)
     pad = frame_length // 2
-    ypad = np.pad(y, (pad, pad), mode="constant")
     n = 1 + len(y) // hop_length
-    idx = np.arange(n)[:, None] * hop_length + np.arange(frame_length)[None, :]
-    frames = ypad[idx]
-    return np.sqrt(np.mean(frames**2, axis=1))
+    if not _blocks_fit(y, frame_length, hop_length):
+        _trims["gather"] += 1
+        ypad = np.pad(y, (pad, pad), mode="constant")
+        idx = np.arange(n)[:, None] * hop_length + np.arange(frame_length)[None, :]
+        frames = ypad[idx]
+        return np.sqrt(np.mean(frames**2, axis=1))
+    _trims["blocks"] += 1
+    k = frame_length // hop_length
+    sq = np.pad(y, (pad, pad), mode="constant")
+    np.square(sq, out=sq)
+    s = sq[: (n + k - 1) * hop_length].reshape(n + k - 1, hop_length).sum(axis=1)
+    step = 1
+    while step < k:
+        s = s[:-step] + s[step:]
+        step *= 2
+    # np.mean's own division (a count of type intp, cast back to y's dtype)
+    np.true_divide(s, np.intp(frame_length), out=s, casting="unsafe")
+    return np.sqrt(s)
 
 
 def trim_silence(
