@@ -2295,14 +2295,20 @@ def multi_device_path(work: Path, host: Path, conv_out: Path, iters: int = 10, d
         torch.cuda.synchronize()
         walls[k].append(time.perf_counter() - t0)
     calls: dict = {}
-    with capture(("frontend", "gru", "griffin_lim"), calls):
-        ops.reset_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res["split"] = convs["split"].convert_wavs_multi(wavs, ids, tgt_names=list(TARGETS))
-        torch.cuda.synchronize()
-        walls["split"].append(time.perf_counter() - t0)
-        launches["multi_device_convert"] = ops.launch_counts()
+    # the recorded call runs operator by operator: the split Converter's CUDA
+    # graphs, captured above, would replay its kernels without their wrappers
+    graphs, convs["split"]._graphs = convs["split"]._graphs, None
+    try:
+        with capture(("frontend", "gru", "griffin_lim"), calls):
+            ops.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res["split"] = convs["split"].convert_wavs_multi(wavs, ids, tgt_names=list(TARGETS))
+            torch.cuda.synchronize()
+            walls["split"].append(time.perf_counter() - t0)
+            launches["multi_device_convert"] = ops.launch_counts()
+    finally:
+        convs["split"]._graphs = graphs
     for name in ("frontend", "gru", "griffin_lim"):
         n = sum(count for _, _, count in calls[name].values())
         check(n > 0 and n == launches["multi_device_convert"][name],
@@ -2319,8 +2325,8 @@ def multi_device_path(work: Path, host: Path, conv_out: Path, iters: int = 10, d
             if (a != c).any():
                 flips += int((a != c).sum())
                 s_mean, s_std = one._src_stats(1, None)
-                (_, _, arrays, to_dev), = one._pcm_chunks(one._trimmed([wavs[i]], True), s_mean, s_std)
-                x, tl = to_dev(one.device, *arrays)
+                (_, _, arrays, to_features), = one._pcm_chunks(one._trimmed([wavs[i]], True), s_mean, s_std)
+                x, tl = to_features(*(torch.from_numpy(a).to(one.device) for a in arrays))
                 with torch.inference_mode():
                     lg = one.encoder(x, lengths=tl)[0, : a.shape[0]].float().cpu().numpy()
                 worst_margin = max(worst_margin, float(np.abs(lg[..., 0] - lg[..., 1])[a != c].max()))

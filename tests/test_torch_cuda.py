@@ -506,8 +506,8 @@ def test_converter_split_over_one_card_twice_matches_one_device(cuda, tmp_path):
         if (a != c).any():  # only where the single device's own logit margin is tiny
             one = Converter(b.hps, b.acfg, enc_sd, dec_sd, stats=b.stats, device=cuda)
             s_mean, s_std = one._src_stats(1, None)
-            (_, _, arrays, to_dev), = one._pcm_chunks(one._trimmed([wavs[i]], True), s_mean, s_std)
-            x, tlens = to_dev(one.device, *arrays)
+            (_, _, arrays, to_features), = one._pcm_chunks(one._trimmed([wavs[i]], True), s_mean, s_std)
+            x, tlens = to_features(*(torch.from_numpy(a).to(one.device) for a in arrays))
             with torch.inference_mode():
                 lg = one.encoder(x, lengths=tlens)[0, : a.shape[0]].float().cpu().numpy()
             assert (np.abs(lg[..., 0] - lg[..., 1])[a != c] < 1e-4).all()
@@ -627,3 +627,108 @@ def test_resident_reading_leaves_out_a_free_pending_on_another_stream(cuda):
     x.record_stream(side)
     del x
     assert dp_parity.resident(cuda) == base
+
+
+def _cell_converters(cell: str, seed: int, device):
+    """The benchmark cell's Converter built twice from one seed (as the
+    benchmark builds it), the first run operator by operator, and the
+    cell's model, traffic and one pass of its wavs."""
+    from benchmark.core import conversion, manifest, traffic
+
+    c = manifest.cell(cell)
+    tr = c["traffic"]
+    model = conversion.Model(c["config"], seed, device)
+    eager, graphs = (model.program(tr["batch_size"], tr["bucket_frames"]) for _ in range(2))
+    assert graphs._graphs is not None
+    eager._graphs = None
+    wavs = traffic.utterances(tr["duration_s"], tr["utterances"], seed, model.ac["sr"])
+    return eager, graphs, model, tr, wavs
+
+
+def _equal_outputs(a, b) -> None:
+    (ua, pa), (ub, pb) = a, b
+    assert len(ua) == len(ub) and len(pa) == len(pb)
+    for x, y in zip(ua, ub):
+        assert x.dtype == y.dtype == np.int32 and np.array_equal(x, y)
+    for ta, tb in zip(pa, pb):
+        for x, y in zip(ta, tb):
+            assert x.dtype == y.dtype == np.int16 and np.array_equal(x, y)
+
+
+@pytest.mark.parametrize("cell", ["convert-corpus.lin-f32", "convert-corpus.lin-bf16"])
+def test_graphs_equal_eager_on_a_pass_of_the_cell(cuda, cell):
+    """Flagship width, the cell's traffic: two passes on the graph route
+    return what the Converter run operator by operator returns, units and
+    PCM bit for bit (a replay runs the kernels the capture recorded, on the
+    same inputs); one capture a distinct dispatch shape, one replay every
+    later dispatch; the kernel launch counters read each pass as the eager
+    pass reads."""
+    from zerospeech_tts_tpu_torch import convert, ops
+    from zerospeech_tts_tpu_torch.convert import _bucket_stats
+    from zerospeech_tts_tpu_torch.dsp.wavio import trim_silence
+
+    eager, graphs, model, tr, wavs = _cell_converters(cell, 3100000017, cuda)
+    ids = [model.speakers[t] for t in model.targets]
+
+    def run(conv):
+        ops.reset_launches()
+        out = conv.convert_wavs_multi(wavs, ids, tgt_names=model.targets, trim=tr["trim"])
+        torch.cuda.synchronize()
+        return out, ops.launch_counts()
+
+    want, eager_launches = run(eager)
+    before = convert.graph_counts()
+    for _ in range(2):
+        got, launches = run(graphs)
+        _equal_outputs(got, want)
+        assert launches == eager_launches
+    after = convert.graph_counts()
+    frames = [audio.n_frames_for(len(trim_silence(w, graphs.acfg.top_db)), graphs.acfg) for w in wavs]
+    n_disp = _bucket_stats(graphs, frames)["n_dispatches"]
+    n_shapes = len(graphs._graphs.entries)
+    assert 1 < n_shapes < n_disp
+    assert {k: after[k] - before[k] for k in after} == {
+        "eager": n_shapes, "captured": n_shapes, "replayed": 2 * n_disp - n_shapes}
+
+
+def test_service_on_graphs_equals_eager_at_mixed_batch_sizes(cuda):
+    """ConversionService over the bf16 cell's Converter: waves of 1, 3, 8,
+    5 and 2 requests of one bucket (each wave one batch) to both targets,
+    and a units-only wave, twice over; every answer equals the eager
+    Converter's service's, bit for bit, and the second round replays."""
+    from benchmark.core import traffic
+    from zerospeech_tts_tpu_torch import convert
+    from zerospeech_tts_tpu_torch.serve import ConversionService
+
+    eager, graphs, model, _, _ = _cell_converters("convert-corpus.lin-bf16", 2900000031, cuda)
+    wavs = [traffic.speechlike(48000 + 320 * i, traffic.rng(7, i)) for i in range(8)]  # 241-253 frames
+    waves = [(wavs[:1], model.targets), (wavs[1:4], model.targets), (wavs, model.targets),
+             (wavs[3:], model.targets), (wavs[6:], model.targets), (wavs[2:7], ())]
+
+    def answers(conv):
+        svc = ConversionService(conv, model.speakers, window_ms=100.0, max_batch=8)
+        try:
+            out = []
+            for _ in range(2):
+                for ws, tgts in waves:
+                    reqs = [svc.submit(w, tgts) for w in ws]
+                    out.append([r.result(600) for r in reqs])
+            assert svc.dispatches == 2 * len(waves)
+            return out
+        finally:
+            svc.close()
+
+    want = answers(eager)
+    before = convert.graph_counts()
+    got = answers(graphs)
+    after = convert.graph_counts()
+    for wa, wb in zip(want, got):
+        for a, b in zip(wa, wb):
+            assert np.array_equal(a["units"], b["units"])
+            assert a.keys() == b.keys() and a.get("wavs", {}).keys() == b.get("wavs", {}).keys()
+            for t in a.get("wavs", {}):
+                assert np.array_equal(a["wavs"][t], b["wavs"][t])
+    n_shapes = len(graphs._graphs.entries)
+    assert n_shapes == 6  # five row counts of one bucket to two targets, one of units only
+    assert {k: after[k] - before[k] for k in after} == {
+        "eager": n_shapes, "captured": n_shapes, "replayed": 2 * len(waves) - n_shapes}

@@ -43,6 +43,14 @@ return and the files hold stays int16 PCM), and ``wire="uint8"``
 (``--wire-uint8``) quantises each utterance's features to 256 levels over
 its own [min, max] on the host and dequantises them on the device (the
 features route; the wav routes have no feature wire).
+
+On CUDA devices a dispatch's device work runs as the replay of a CUDA
+graph, one a dispatch shape (``_Graphs``): the first dispatch of a shape
+runs operator by operator, the second captures and replays, every later
+one replays. The wire arrays cross through pinned staging buffers into the
+graph's own inputs, and its outputs go straight back into pinned host
+tensors of the dispatch's own. ``check_numerics`` and the CPU run operator
+by operator. ``graph_counts()`` counts the dispatches each way.
 """
 
 from __future__ import annotations
@@ -53,6 +61,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from zerospeech_tts_tpu_torch import ops
 from zerospeech_tts_tpu_torch.config import AudioConfig, Hps
 from zerospeech_tts_tpu_torch.dsp import audio as dsp_audio
 from zerospeech_tts_tpu_torch.dsp.mulaw import (
@@ -242,6 +251,182 @@ def uint8_wire(x: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     return q.astype(np.uint8), lo, scale
 
 
+# dispatch slices by how they ran: operator by operator ("eager": every
+# slice off the graph route, and a shape's first on it), graphs captured,
+# and graph replays
+_graph_runs = {"eager": 0, "captured": 0, "replayed": 0}
+
+
+def graph_counts() -> dict[str, int]:
+    """How many dispatch slices ran eagerly, how many graphs were captured
+    and how many replays ran."""
+    return dict(_graph_runs)
+
+
+def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device``, copied in stream order through pinned
+    memory on a card (a copy from pageable memory waits for everything
+    queued before it)."""
+    t = torch.from_numpy(a)
+    return t.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else t.to(device)
+
+
+def _recorded(device: torch.device):
+    """An event recorded on ``device``'s current stream (None off the card)."""
+    if device.type != "cuda":
+        return None
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(device))
+    return event
+
+
+class _Staging:
+    """A ring of pinned host buffers the wire arrays of a dispatch cross
+    from: a slot is written again only once the event recorded after its
+    copies to the device shows they have finished."""
+
+    _ALIGN = 64
+
+    def __init__(self, slots: int = 8):
+        self._slots = [[torch.empty(0, dtype=torch.uint8), None] for _ in range(slots)]  # bytes, event
+        self._next = 0
+
+    def put(self, device: torch.device, arrays: list[torch.Tensor]):
+        """Host copies of ``arrays`` in the next slot, and the slot, whose
+        event (``slot[1]``) the caller records after the copies it issues."""
+        slot = self._slots[self._next]
+        self._next = (self._next + 1) % len(self._slots)
+        if slot[1] is not None:
+            slot[1].synchronize()
+            slot[1] = None
+        sizes = [-(-a.numel() * a.element_size() // self._ALIGN) * self._ALIGN for a in arrays]
+        if slot[0].numel() < sum(sizes):
+            slot[0] = torch.empty(sum(sizes), dtype=torch.uint8, pin_memory=device.type == "cuda")
+        views, off = [], 0
+        for a, size in zip(arrays, sizes):
+            v = slot[0][off : off + a.numel() * a.element_size()].view(a.dtype).view(a.shape)
+            v.copy_(a)
+            views.append(v)
+            off += size
+        return views, slot
+
+
+class _Pending:
+    """A dispatch slice's outputs on their way to host tensors of its own."""
+
+    def __init__(self, hosts: list[torch.Tensor], event):
+        self.hosts, self.event = hosts, event
+
+    def numpy(self) -> list[np.ndarray]:
+        if self.event is not None:
+            self.event.synchronize()
+        return [h.numpy() for h in self.hosts]
+
+
+class _Graph:
+    """One dispatch shape: its static inputs and outputs, its CUDA graph
+    (or, off the card, the function run in place of a replay), and the
+    kernel launches a replay runs."""
+
+    def __init__(self, ins: list[torch.Tensor]):
+        self.ins = ins
+        self.outs: tuple = ()
+        self.graph = None
+        self.launches: dict[str, int] = {}
+
+
+class _Graphs:
+    """The Converter's dispatches as CUDA graphs, one a dispatch shape
+    (``key``: the route, the device, every input's shape and dtype, the
+    Griffin-Lim iterations and the matmul precision flags).
+
+    :meth:`run` fills the shape's static inputs (the wire arrays by
+    non-blocking copies from a :class:`_Staging` slot, the call's speaker
+    ids and target statistics by device copies); runs ``fn`` on them
+    eagerly the first time (the warm-up a capture needs: cuDNN's plans,
+    the kernels' tables and builds, the GRU plans), captures it into a
+    graph and replays it the second time, and replays it every later time;
+    then copies the outputs into host tensors of the dispatch's own on the
+    same stream. The next replay of a shape overwrites its static outputs,
+    and every dispatch of a call is launched before any is read back, so
+    the outputs leave them at once. The graphs of a device share one memory
+    pool: they replay one at a time on its current stream.
+
+    A capture records the kernel launches it made (``ops.launch_counts``)
+    and takes them back, since nothing ran; each replay adds them. Off the
+    card (the CPU tests) the same bookkeeping runs ``fn`` in place of a
+    replay and writes its outputs into the static ones."""
+
+    def __init__(self):
+        self.entries: dict[tuple, _Graph] = {}
+        self.staging = _Staging()
+        self._pools: dict[torch.device, tuple] = {}
+        self._streams: dict[torch.device, torch.cuda.Stream] = {}
+
+    def run(self, key: tuple, dev: torch.device, host: list[torch.Tensor], shared: list[torch.Tensor], fn):
+        e = self.entries.get(key)
+        first = e is None
+        if first:
+            e = _Graph([torch.empty(t.shape, dtype=t.dtype, device=dev) for t in [*host, *shared]])
+        card = dev.type == "cuda"
+        views, slot = self.staging.put(dev, host)
+        for dst, src in zip(e.ins, views + list(shared)):
+            dst.copy_(src, non_blocking=card)
+        slot[1] = _recorded(dev)
+        if first:
+            outs = fn(*e.ins)
+            self.entries[key] = e  # kept once its warm-up ran
+            _graph_runs["eager"] += 1
+        else:
+            if e.graph is None:
+                self._capture(e, dev, fn)
+            self._replay(e, card)
+            outs = e.outs
+        hosts = [torch.empty(o.shape, dtype=o.dtype, pin_memory=card) for o in outs]
+        for h, o in zip(hosts, outs):
+            h.copy_(o, non_blocking=card)
+        return _Pending(hosts, _recorded(dev))
+
+    def _capture(self, e: _Graph, dev: torch.device, fn) -> None:
+        with span("convert.capture"):
+            if dev.type != "cuda":
+                e.outs, e.graph = fn(*e.ins), fn
+            else:
+                before = ops.launch_counts()
+                e.graph = torch.cuda.CUDAGraph()
+                if dev not in self._pools:
+                    self._pools[dev] = torch.cuda.graph_pool_handle()
+                    self._streams[dev] = torch.cuda.Stream(dev)
+                stream = self._streams[dev]
+                stream.wait_stream(torch.cuda.current_stream(dev))
+                with torch.cuda.device(dev), torch.cuda.stream(stream):
+                    e.graph.capture_begin(pool=self._pools[dev], capture_error_mode="thread_local")
+                    try:
+                        e.outs = fn(*e.ins)
+                    except BaseException:
+                        try:
+                            e.graph.capture_end()
+                        except RuntimeError:
+                            pass  # the capture is void; the function's own error is the one to raise
+                        e.graph = None
+                        raise
+                    e.graph.capture_end()
+                torch.cuda.current_stream(dev).wait_stream(stream)
+                e.launches = {k: v - before[k] for k, v in ops.launch_counts().items() if v != before[k]}
+                ops.add_launches(e.launches, -1)
+        _graph_runs["captured"] += 1
+
+    @staticmethod
+    def _replay(e: _Graph, card: bool) -> None:
+        if card:
+            e.graph.replay()
+            ops.add_launches(e.launches)
+        else:
+            for o, r in zip(e.outs, e.graph(*e.ins)):
+                o.copy_(r)
+        _graph_runs["replayed"] += 1
+
+
 class Converter:
     """Encoder + decoder on ``device``, converting PCM or feature batches
     per padded length bucket. ``enc_state``/``dec_state`` are the port's
@@ -306,6 +491,7 @@ class Converter:
             raise RuntimeError(f"devices {self.devices}: no CUDA device is visible")
         self.hps, self.acfg, self.stats = hps, acfg, stats
         self.check_numerics = check_numerics
+        self._graphs = _Graphs() if all(d.type == "cuda" for d in self.devices) else None
         self.gl_iters = gl_iters if gl_iters is not None else acfg.gl_iters
         n_dev = len(self.devices)
         self.batch_size = -(-batch_size // n_dev) * n_dev  # whole rows on every device
@@ -422,12 +608,14 @@ class Converter:
 
     # ---------------------------------------------------------------- core
 
-    def _convert_core(self, dev, x, spk, tgt_mean, tgt_std, tlens):
+    def _convert_core(self, dev, x, tlens, spk, tgt_mean, tgt_std):
         """Normalised features x [B, T, F] on ``dev`` (one of the devices)
         -> (units [B, T/ds, emb] int32, PCM [n_tgt, B, (T-1)*hop]: int16, or
         uint8 mu-law codes on the mu-law wire) there. ``tlens`` ([B] true
         frame counts) drives the length-masked encoder/decoder so bucket
-        padding never changes the true frames' units or audio."""
+        padding never changes the true frames' units or audio; ``spk``
+        [n_tgt, B] are the targets' ids, ``tgt_mean``/``tgt_std`` [n_tgt,
+        F] their denorm statistics."""
         hps, acfg = self.hps, self.acfg
         _, conv_encoder, decoder = self._models[dev]
         zlens = (tlens + hps.downsample - 1) // hps.downsample
@@ -445,7 +633,7 @@ class Converter:
         n_tgt, bsz = spk.shape
         z_all = z[:, None].expand(bsz, n_tgt, *z.shape[1:]).reshape(bsz * n_tgt, *z.shape[1:])
         spk_flat = spk.T.reshape(-1)
-        xh = decoder(z_all, spk_flat, lengths=zlens.repeat_interleave(n_tgt)).float()
+        xh = decoder(z_all, spk_flat, lengths=zlens[:, None].expand(bsz, n_tgt).reshape(-1)).float()
         mean_all = tgt_mean[None].expand(bsz, -1, -1).reshape(bsz * n_tgt, 1, -1)
         std_all = tgt_std[None].expand(bsz, -1, -1).reshape(bsz * n_tgt, 1, -1)
         xh = torch.clamp(xh * std_all + mean_all, 0.0, 1.0)
@@ -500,36 +688,34 @@ class Converter:
                     np.ones((n, self.hps.n_feat), np.float32))
         return self.stats.arrays_for(src_speakers or ["__global__"] * n)
 
-    def _tgt_stats(self, spk_ids, tgt_names):
-        """Target denorm [n_tgt, F] mean/std on each device."""
+    def _targets(self, spk_ids, tgt_names):
+        """The targets' ids [n_tgt] and denorm mean/std [n_tgt, F] on each
+        device, once a call."""
         if self.stats is None:
             m = np.zeros((len(spk_ids), self.hps.n_feat), np.float32)
             s = np.ones((len(spk_ids), self.hps.n_feat), np.float32)
         else:
             m, s = self.stats.arrays_for(tgt_names)
-        return {d: (torch.from_numpy(m).to(d), torch.from_numpy(s).to(d)) for d in self._models}
+        ids = np.asarray(spk_ids, np.int64)
+        return {d: tuple(_to_device(a, d) for a in (ids, m, s)) for d in self._models}
 
-    def _pcm_features(self, dev, pcm, sm, ss, sl):
-        """Host rows of a PCM dispatch -> (features, true frame counts) on
-        ``dev`` (the frontend runs there)."""
-        return self._wav_features(*(torch.from_numpy(a).to(dev) for a in (pcm, sm, ss, sl)))
-
-    def _wire_features(self, dev, x, tl, lo=None, scale=None, dtype=torch.float32):
-        """Host rows of a feature dispatch -> (features, true frame counts)
-        on ``dev``. On the bf16 wire ``x`` crosses in bf16 and is read back
-        in f32; on the uint8 wire ``x`` holds the codes, dequantised there
+    @staticmethod
+    def _wire_features(x, tl, lo=None, scale=None, dtype=torch.float32):
+        """A feature dispatch's wire arrays on the device -> (features, true
+        frame counts). On the bf16 wire ``x`` crossed in bf16 and is read
+        back in f32; on the uint8 wire ``x`` holds the codes, dequantised
         in ``dtype`` as q * scale + lo."""
-        tl = torch.from_numpy(tl).to(dev)
         if lo is None:
-            return torch.from_numpy(x).to(torch.bfloat16).to(dev).to(torch.float32), tl
-        lo, scale = (torch.from_numpy(a).to(dev).to(dtype)[:, None, None] for a in (lo, scale))
-        return torch.from_numpy(x).to(dev).to(dtype) * scale + lo, tl
+            return x.to(torch.float32), tl
+        lo, scale = (a.to(dtype)[:, None, None] for a in (lo, scale))
+        return x.to(dtype) * scale + lo, tl
 
     def _pcm_chunks(self, wavs, s_mean, s_std):
         """Per dispatch of the trimmed float ``wavs``: (utterance indices,
-        batch rows, host arrays [rows, ...], the function that takes a
-        device and rows of them to device features [rows, tb, F] and true
-        frame counts). Dummy rows are silent and act full-length."""
+        batch rows, host arrays [rows, ...] as they cross the wire, the
+        function that takes rows of them on a device to features [rows, tb,
+        F] and true frame counts there). Dummy rows are silent and act
+        full-length."""
         acfg, hps = self.acfg, self.hps
         frames = [dsp_audio.n_frames_for(len(w), acfg) for w in wavs]
         mulaw = self.pcm_wire == "mulaw"
@@ -546,7 +732,7 @@ class Converter:
                     pcm[j, : len(w)] = mulaw_compress_host(w) if mulaw else w
                     sm[j], ss[j] = s_mean[i], s_std[i]
                     sl[j] = len(w)
-            yield chunk, bs_c, (pcm, sm, ss, sl), self._pcm_features
+            yield chunk, bs_c, (pcm, sm, ss, sl), self._wav_features
 
     def _feature_chunks(self, feats_list, dtype=torch.float32):
         """Per dispatch of normalised [T_i, F] features: as _pcm_chunks,
@@ -554,7 +740,7 @@ class Converter:
         their lo and scale, dequantised in ``dtype``); dummy rows are zeros
         at full length."""
         frames = [f.shape[0] for f in feats_list]
-        to_device = lambda dev, *a: self._wire_features(dev, *a, dtype=dtype)  # noqa: E731
+        to_features = lambda *a: self._wire_features(*a, dtype=dtype)  # noqa: E731
         for tb, chunk, bs_c in self._dispatches(frames, frames):
             with span("convert.pack"):
                 x = np.zeros((bs_c, tb, self.hps.n_feat), np.float32)
@@ -566,20 +752,36 @@ class Converter:
                     q, lo, scale = uint8_wire(x)
                     arrays = (q, tl, lo, scale)
                 else:
-                    arrays = (x, tl)
-            yield chunk, bs_c, arrays, to_device
+                    arrays = (torch.from_numpy(x).to(torch.bfloat16), tl)
+            yield chunk, bs_c, arrays, to_features
 
-    def _launch(self, chunks, core):
-        """For each dispatch, ``core(dev, x, tlens)`` on every device's
-        slice of its rows, all launched before any is read back: [(utterance
-        indices, [each slice's outputs])]."""
+    def _launch(self, chunks, core, route: tuple, shared=lambda dev, rows: ()):
+        """For each dispatch, ``core(dev, x, tlens, *shared(dev, rows))`` (a
+        tuple of device tensors) on every device's slice of its rows, all
+        launched before any is read back: [(utterance indices, [each slice's
+        outputs])]. A slice's outputs are that tuple (operator by operator:
+        check_numerics, or a device that is not CUDA) or a ``_Pending`` (a
+        graph's); :func:`_host_outputs` reads either. ``route`` names what
+        ``core`` and the chunks' function compute, for the graphs' keys."""
+        graphs = None if self.check_numerics else self._graphs
         inflight = []
-        for chunk, bs_c, arrays, to_device in chunks:
+        for chunk, bs_c, arrays, to_features in chunks:
             with span("convert.launch"):
                 parts = []
                 for dev, rows in self._slices(bs_c):
-                    x, tlens = to_device(dev, *(a[rows] for a in arrays))
-                    parts.append(core(dev, x, tlens))
+                    host = [torch.as_tensor(a[rows]) for a in arrays]
+                    extra = shared(dev, rows.stop - rows.start)
+                    if graphs is None:
+                        _graph_runs["eager"] += 1
+                        parts.append(core(dev, *to_features(*(t.to(dev) for t in host)), *extra))
+                        continue
+
+                    def fn(*ins, _dev=dev, _f=to_features, _n=len(host)):
+                        return core(_dev, *_f(*ins[:_n]), *ins[_n:])
+
+                    key = (route, self.pcm_wire, self.wire, self.gl_iters, dev,
+                           tuple((tuple(t.shape), t.dtype) for t in host + list(extra)), _precision())
+                    parts.append(graphs.run(key, dev, host, list(extra), fn))
             inflight.append((chunk, parts))
         return inflight
 
@@ -599,21 +801,19 @@ class Converter:
                 "conversion would denormalize with the WRONG (global) statistics. Pass "
                 "per-target names, or build the Converter with stats=None to opt out."
             )
-        t_stats = self._tgt_stats(spk_ids, tgt_names)
-        spk_arr = np.asarray(spk_ids, np.int64)[:, None]
+        targets = self._targets(spk_ids, tgt_names)
 
-        def core(dev, x, tlens):
-            spk = torch.from_numpy(np.tile(spk_arr, (1, x.shape[0]))).to(dev)
-            return self._convert_core(dev, x, spk, *t_stats[dev], tlens)
+        def shared(dev, rows):  # the ids [n_tgt, rows] of a slice, its targets' statistics
+            ids, mean, std = targets[dev]
+            return ids[:, None].expand(-1, rows), mean, std
 
-        inflight = self._launch(chunks, core)
+        inflight = self._launch(chunks, lambda *a: self._convert_core(*a), ("convert",), shared)
         ds, hop = self.hps.downsample, self.acfg.hop_length
         units_out: list = [None] * n
         wavs_out: list[list] = [[None] * n for _ in spk_ids]
         for chunk, parts in inflight:  # row j is row j % b of slice j // b: no concatenating copy
             with span("convert.readback"):
-                units = [u.cpu().numpy() for u, _ in parts]
-                pcm = [p.cpu().numpy() for _, p in parts]  # each [n_tgt, b, n]
+                units, pcm = zip(*(_host_outputs(p) for p in parts))  # pcm: each [n_tgt, b, n]
                 b = units[0].shape[0]
                 for j, i in enumerate(chunk):
                     q, r = divmod(j, b)
@@ -624,12 +824,12 @@ class Converter:
         return units_out, wavs_out
 
     def _run_encoding(self, chunks, n, t_true):
-        inflight = self._launch(chunks, self._encode)
+        inflight = self._launch(chunks, lambda *a: (self._encode(*a),), ("units",))
         ds = self.hps.downsample
         out: list = [None] * n
         for chunk, parts in inflight:
             with span("convert.readback"):
-                units = [u.cpu().numpy() for u in parts]
+                units = [_host_outputs(p)[0] for p in parts]
                 b = units[0].shape[0]
                 for j, i in enumerate(chunk):
                     q, r = divmod(j, b)
@@ -744,6 +944,19 @@ class Converter:
             [wav], [spk_id], tgt_names=[tgt_name] if self.stats is not None else None, trim=trim
         )
         return units[0], wavs[0][0]
+
+
+def _precision() -> tuple:
+    """The matmul precision flags a graph's captured kernels were chosen under."""
+    return (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+            torch.get_float32_matmul_precision())
+
+
+def _host_outputs(part) -> list[np.ndarray]:
+    """A dispatch slice's outputs (``Converter._launch``) as host arrays."""
+    if isinstance(part, _Pending):
+        return part.numpy()
+    return [t.cpu().numpy() for t in part]
 
 
 def _bucket_stats(converter: Converter, true_frames) -> dict:

@@ -228,9 +228,16 @@ def mel_to_gl_magnitudes(mel_norm: torch.Tensor, cfg: AudioConfig) -> torch.Tens
     [B, T, n_freq] Griffin-Lim takes: denormalise, lift through the mel
     basis's pseudo-inverse (a plain matrix product, clamped at 1e-10), then
     ** gl_power (the JAX ``melspectrogram2wav`` up to its Griffin-Lim)."""
-    pinv = torch.from_numpy(_mel_pinv(cfg)).to(mel_norm.device)
-    amp = torch.clamp(db_norm_to_amp(mel_norm, cfg) @ pinv.T, min=1e-10)
+    amp = torch.clamp(db_norm_to_amp(mel_norm, cfg) @ _mel_pinv_on(cfg, str(mel_norm.device)).T, min=1e-10)
     return amp ** cfg.gl_power
+
+
+@functools.lru_cache(maxsize=8)
+def _mel_pinv_on(cfg: AudioConfig, device: str) -> torch.Tensor:
+    """The mel pseudo-inverse [n_freq, n_mels] f32 on ``device``, copied
+    there once: a CUDA graph captured over the mel route reads it at every
+    replay, and a capture takes no copy from the host."""
+    return torch.from_numpy(_mel_pinv(cfg)).to(device)
 
 
 def melspectrogram2wav(mel_norm: torch.Tensor, cfg: AudioConfig, n_iters: int | None = None):

@@ -26,3 +26,12 @@ def reset_launches() -> None:
 
 def launch_counts() -> dict[str, int]:
     return {name: getattr(mod, attr) for name, (mod, attr, _) in KERNELS.items()}
+
+
+def add_launches(counts: dict[str, int], sign: int = 1) -> None:
+    """Add ``sign`` times ``counts`` (kernel name -> launches) to the
+    counters: a CUDA graph's replay runs the launches its capture made,
+    and the capture itself runs none."""
+    for name, n in counts.items():
+        mod, attr, _ = KERNELS[name]
+        setattr(mod, attr, getattr(mod, attr) + sign * n)

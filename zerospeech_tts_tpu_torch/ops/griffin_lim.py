@@ -79,9 +79,11 @@ def _kernel_limits(cfg: AudioConfig) -> int:
     return lg
 
 
-@functools.lru_cache(maxsize=32)
+@functools.lru_cache(maxsize=None)
 def _wss_inv(cfg: AudioConfig, t: int, device: str) -> torch.Tensor:
-    """1 / the full window-square envelope, [(t - 1 + r) * hop] f32."""
+    """1 / the full window-square envelope, [(t - 1 + r) * hop] f32. Kept
+    for the life of the process: a conversion's CUDA graph of a t-frame
+    dispatch reads this tensor at every replay."""
     inv = 1.0 / dsp_audio._fused_wss(cfg, t).astype(np.float64)
     return torch.from_numpy(inv.astype(np.float32)).to(device)
 
