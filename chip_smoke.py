@@ -194,8 +194,8 @@ PEAKS = {"gru_bf16": PEAK_BF16_FLOPS}  # a kernel's operations at their type's p
 def rfft_flops(n: int) -> float:
     """Operations of one real FFT (or inverse) of n points: 2.5 n log2 n,
     half the usual 5 n log2 n of a complex one. The least work of a DFT,
-    whatever the kernel does (kernels 1 and 4 run packed complex four-step
-    FFTs, kernel 1 also direct sums for its near-floor bins)."""
+    whatever the kernel does (kernels 1 and 4 run packed complex FFTs,
+    kernel 1 also direct sums for its near-floor bins)."""
     return 2.5 * n * math.log2(n)
 
 
@@ -829,9 +829,12 @@ def main() -> None:
         if tag == "16x512":
             k_ms = cuda_ms(lambda: griffin_lim.griffin_lim(amp, cfg, n_iters=8), 3)
             p_ms = cuda_ms(lambda: griffin_lim.griffin_lim_plain(amp, cfg, n_iters=8), 3)
-            line += f"  kernel {k_ms:.3f} ms  plain {p_ms:.3f} ms"
+            plan = griffin_lim.last_plan
+            line += (f"  kernel {k_ms:.3f} ms  plain {p_ms:.3f} ms  plan: {plan.threads_per_pair} threads a "
+                     f"frame pair, {plan.blocks} blocks a round, {plan.resident_per_sm} resident an SM, "
+                     f"{plan.waves} waves a round")
             results["griffin_lim"] = dict(
-                ms=k_ms, plain_ms=p_ms, rel_l2=rel, library_ms=None,
+                ms=k_ms, plain_ms=p_ms, rel_l2=rel, library_ms=None, plan=plan._asdict(),
                 **bound(*work("griffin_lim", (amp, cfg, 8), {})))
         print(line, flush=True)
         check(abs(ck - cp) <= 1e-3, f"griffin-lim kernel ({tag}) consistency {ck} vs plain {cp}")

@@ -314,6 +314,59 @@ def test_griffin_lim_kernel_gl100_conversion_shapes(cuda, b, t):
     assert torch.isfinite(out).all() and abs(ck - cp) <= 1e-3, (ck, cp)
 
 
+# The benchmark's conversion cells' Griffin-Lim calls (2 targets x batch
+# rows, 64-frame buckets): rows x frames
+CELL_GL = [(16, 128), (16, 320), (16, 448), (6, 192), (2, 960)]
+
+
+@pytest.mark.parametrize("b,t", CELL_GL, ids=[f"{b}x{t}" for b, t in CELL_GL])
+def test_griffin_lim_kernel_cell_shapes(cuda, b, t):
+    """At the cells' shapes: GL-8 within 1e-3 rel-L2 of the plain version,
+    pooled, on the worst row and on its edges; GL-100's magnitude
+    consistency within 1e-3 of the plain version's."""
+    cfg = AudioConfig()
+    n = t * cfg.hop_length - 1
+    y = torch.from_numpy(np.stack([_noisy_tones(n, s) for s in range(b)])).to(cuda)
+    _, mag = audio.wav_to_features(y, cfg)
+    amp = (audio.db_norm_to_amp(mag, cfg) ** cfg.gl_power).contiguous()
+    out = griffin_lim.griffin_lim(amp, cfg, n_iters=8)
+    torch.cuda.synchronize()
+    ref = griffin_lim.griffin_lim_plain(amp, cfg, n_iters=8)
+    assert out.shape == ref.shape == (b, (t - 1) * cfg.hop_length)
+    assert _rel(out, ref) < 1e-3, _rel(out, ref)
+    e = cfg.win_length
+    for a, b_ in ((out, ref), (torch.cat([out[:, :e], out[:, -e:]], -1), torch.cat([ref[:, :e], ref[:, -e:]], -1))):
+        row = (torch.linalg.norm(a - b_, dim=-1) / torch.linalg.norm(b_, dim=-1)).max().item()
+        assert row < 1e-3, row
+    out = griffin_lim.griffin_lim(amp, cfg, n_iters=100)
+    torch.cuda.synchronize()
+    ref = griffin_lim.griffin_lim_plain(amp, cfg, n_iters=100)
+    ck, cp = _consistency(out, amp, cfg), _consistency(ref, amp, cfg)
+    print(f"GL-100 {b}x{t}: consistency kernel {ck:.5f} plain {cp:.5f}, signal rel-L2 {_rel(out, ref):.3e}")
+    assert torch.isfinite(out).all() and abs(ck - cp) <= 1e-3, (ck, cp)
+
+
+def test_griffin_lim_plan_keeps_32_warps_an_sm(cuda):
+    """At n_fft = 1024 a frame pair takes 128 threads, a block 8 units of
+    them, and an SM holds at least 32 warps. A unit carries two frame pairs
+    (32 frames a block, 29 owned rows at win/hop = 4) unless one pair (16
+    frames, 13 rows) takes fewer waves of frames; the waves a round follow
+    from the blocks and the card's SMs."""
+    cfg = AudioConfig()
+    r = cfg.win_length // cfg.hop_length
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for b, t, frames in ((16, 448, 32), (6, 192, 16)):
+        mag = torch.rand(b, t, cfg.n_freq, device=cuda)
+        before = griffin_lim.round_waves
+        griffin_lim.griffin_lim(mag, cfg, n_iters=1)
+        torch.cuda.synchronize()
+        plan = griffin_lim.last_plan
+        assert plan.threads_per_pair == 128 and plan.blocks == b * -(-(t - 1 + r) // (frames - (r - 1))), plan
+        assert plan.resident_per_sm * 8 * plan.threads_per_pair // 32 >= 32, plan
+        assert plan.waves == -(-plan.blocks // (plan.resident_per_sm * sms))
+        assert griffin_lim.round_waves == before + plan.waves
+
+
 def _gru_inputs(b, t, h, seed, device):
     gen = torch.Generator().manual_seed(seed)
     xw = torch.randn(b, t, 3 * h, generator=gen)

@@ -20,12 +20,16 @@ a CUDA tensor and runs :func:`griffin_lim_plain` on a CPU tensor. The
 plain version contracts the window-folded DFT bases; the kernel computes
 the same frames with FFTs (rfft of the windowed frame placed at lpad of an
 n_fft buffer; irfft sliced to [lpad, lpad + win) and windowed), so it
-takes a power-of-two n_fft (16 to 1024) only.
+takes a power-of-two n_fft (16 to 1024) only. Each call records the plan
+it launched (:data:`last_plan`) and adds its waves a round to
+:data:`round_waves`.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -37,6 +41,28 @@ from zerospeech_tts_tpu_torch.ops import build
 launches = 0  # kernel launches through griffin_lim (one per whole vocoder call)
 
 
+class Plan(NamedTuple):
+    """What one call of the kernel launched, each round the same."""
+
+    threads_per_pair: int  # threads that compute a frame pair's FFT
+    blocks: int  # blocks a round
+    resident_per_sm: int  # blocks an SM holds at once (the occupancy calculator's)
+    waves: int  # ceil(blocks / (resident_per_sm x SMs))
+
+
+last_plan: Plan | None = None  # the plan of the newest call
+round_waves = 0  # the sum over calls of each call's waves a round
+
+
+def plan_of(report) -> Plan:
+    """The :class:`Plan` from the C entry's report: threads a frame pair,
+    blocks a round, blocks resident an SM, SMs."""
+    threads, blocks, per_sm, sms = (int(v) for v in report)
+    if per_sm < 1 or sms < 1:
+        raise RuntimeError(f"griffin-lim kernel: {per_sm} blocks resident an SM on {sms} SMs")
+    return Plan(threads, blocks, per_sm, -(-blocks // (per_sm * sms)))
+
+
 @functools.lru_cache(maxsize=16)
 def _bases(cfg: AudioConfig, device: str):
     """(ca, sa [win, F], cs, ss [F, win]) f32 on ``device``."""
@@ -45,8 +71,8 @@ def _bases(cfg: AudioConfig, device: str):
 
 @functools.lru_cache(maxsize=16)
 def _fft_tables(cfg: AudioConfig, device: str):
-    """The kernel's tables, f32 on ``device``, computed in float64: the
-    window's support [win]; the four-step FFT's twiddles W^(k1 l) =
+    """Kernel 1's tables (csrc/frontend.cu), f32 on ``device``, computed in
+    float64: the window's support [win]; the four-step FFT's twiddles W^(k1 l) =
     exp(-2 pi i k1 l / n_fft) [P, L + 1, 2] (n_fft = P x L, L = 2^(lg // 2),
     column L padding); and exp(-2 pi i k / 32) [16, 2] for the register
     FFTs of at most 32 points."""
@@ -60,6 +86,35 @@ def _fft_tables(cfg: AudioConfig, device: str):
     return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in (win, tw, w32))
 
 
+def gl_passes(lg: int) -> list[tuple[int, int]]:
+    """Kernel 4's radix passes before its fused last radix-2 stage, as
+    (radix, NS): a Stockham FFT of 2^lg points over log2 n_fft - 1 radix-2
+    stages, radix 8 and then one radix-4 or radix-2 pass for the rest
+    (csrc/griffin_lim.cu ``Gl``)."""
+    s = lg - 1
+    radices = [8] * (s // 3) + ([1 << (s % 3)] if s % 3 else [])
+    out, ns = [], 1
+    for r in radices:
+        out.append((r, ns))
+        ns *= r
+    return out
+
+
+@functools.lru_cache(maxsize=16)
+def _gl_tables(cfg: AudioConfig, device: str):
+    """Kernel 4's tables, f32 on ``device``, computed in float64: the
+    window's support [win]; the twiddles [TW, 2]: for each pass after the
+    first, W_(NS R)^(r m) for 1 <= r < R, m < NS (r-major), then
+    W_nfft^e for e < n_fft / 2; and exp(-2 pi i k / 32) [16, 2]."""
+    win, _, w32 = _fft_tables(cfg, device)
+    n = cfg.n_fft
+    angs = [-2.0 * np.pi * np.outer(np.arange(1, r), np.arange(ns)).ravel() / (r * ns)
+            for r, ns in gl_passes(n.bit_length() - 1)[1:]]
+    ang = np.concatenate([*angs, -2.0 * np.pi * np.arange(n // 2) / n])
+    tw = np.stack([np.cos(ang), np.sin(ang)], axis=-1).astype(np.float32)
+    return win, torch.from_numpy(tw).to(device), w32
+
+
 def fft_lg(cfg: AudioConfig, kernel: str) -> int:
     """log2 n_fft for a kernel built on csrc/fft.cuh (kernels 1 and 4),
     whose register FFTs take a power of two from 16 to 1024 points."""
@@ -71,8 +126,8 @@ def fft_lg(cfg: AudioConfig, kernel: str) -> int:
 
 def _kernel_limits(cfg: AudioConfig) -> int:
     """log2 n_fft for the kernel (csrc/griffin_lim.cu), which runs
-    power-of-two FFTs of 16 to 1024 points in registers and owns at least
-    17 - win/hop output rows a block."""
+    power-of-two FFTs of 16 to 1024 points and owns at least 17 - win/hop
+    output rows a block."""
     lg = fft_lg(cfg, "griffin-lim kernel")
     if cfg.win_length // cfg.hop_length > 16:
         raise ValueError(f"griffin-lim kernel: win/hop = {cfg.win_length // cfg.hop_length} > 16")
@@ -135,9 +190,9 @@ def griffin_lim_plain(mag: torch.Tensor, cfg: AudioConfig, n_iters: int | None =
 
 def griffin_lim(mag: torch.Tensor, cfg: AudioConfig, n_iters: int | None = None):
     """Same contract as :func:`griffin_lim_plain`; the CUDA kernel on a CUDA
-    tensor (four-step FFTs in registers, so n_fft must be a power of two
-    from 16 to 1024, and win/hop at most 16; n_iters + 2 launches from one
-    C call)."""
+    tensor (each frame pair's FFT on n_fft / 8 threads, so n_fft must be a
+    power of two from 16 to 1024, and win/hop at most 16; n_iters + 2
+    launches from one C call)."""
     if mag.device.type == "cpu":
         return griffin_lim_plain(mag, cfg, n_iters)
     n_iters = _prepare(mag, cfg, n_iters)
@@ -146,18 +201,21 @@ def griffin_lim(mag: torch.Tensor, cfg: AudioConfig, n_iters: int | None = None)
     build.require(mag, "griffin-lim mag", (b, t, f))
     hop, win = cfg.hop_length, cfg.win_length
     n_sig = (t - 1 + win // hop) * hop
-    win_w, tw, w32 = _fft_tables(cfg, str(mag.device))
+    win_w, tw, w32 = _gl_tables(cfg, str(mag.device))
     wss_inv = _wss_inv(cfg, t, str(mag.device))
     u, va, vb, out = (torch.empty(b, n_sig, device=mag.device) for _ in range(4))
+    report = (ctypes.c_int * 4)()
     lib = build.load("griffin_lim")
-    fn = build.bind(lib, "zs_griffin_lim", 9, 6, 1)
+    fn = build.bind(lib, "zs_griffin_lim", 10, 6, 1)
     with build.on_card(mag):
         err = fn(
             mag.data_ptr(), win_w.data_ptr(), tw.data_ptr(), w32.data_ptr(), wss_inv.data_ptr(), u.data_ptr(),
-            va.data_ptr(), vb.data_ptr(), out.data_ptr(), b, t, lg, win, hop, n_iters,
-            cfg.gl_momentum, build.stream_of(mag),
+            va.data_ptr(), vb.data_ptr(), out.data_ptr(), ctypes.addressof(report), b, t, lg, win, hop,
+            n_iters, cfg.gl_momentum, build.stream_of(mag),
         )
     build.check(lib, err, "griffin-lim kernel")
-    global launches
+    global launches, last_plan, round_waves
     launches += 1
+    last_plan = plan_of(report)
+    round_waves += last_plan.waves
     return _trim(out, cfg, t)
