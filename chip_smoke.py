@@ -2300,7 +2300,8 @@ def multi_device_path(work: Path, host: Path, conv_out: Path, iters: int = 10, d
     calls: dict = {}
     # the recorded call runs operator by operator: the split Converter's CUDA
     # graphs, captured above, would replay its kernels without their wrappers
-    graphs, convs["split"]._graphs = convs["split"]._graphs, None
+    dispatcher = convs["split"]._graphs
+    captures, dispatcher.capture = dispatcher.capture, False
     try:
         with capture(("frontend", "gru", "griffin_lim"), calls):
             ops.reset_launches()
@@ -2311,7 +2312,7 @@ def multi_device_path(work: Path, host: Path, conv_out: Path, iters: int = 10, d
             walls["split"].append(time.perf_counter() - t0)
             launches["multi_device_convert"] = ops.launch_counts()
     finally:
-        convs["split"]._graphs = graphs
+        dispatcher.capture = captures
     for name in ("frontend", "gru", "griffin_lim"):
         n = sum(count for _, _, count in calls[name].values())
         check(n > 0 and n == launches["multi_device_convert"][name],
@@ -2327,8 +2328,7 @@ def multi_device_path(work: Path, host: Path, conv_out: Path, iters: int = 10, d
             bits += a.size
             if (a != c).any():
                 flips += int((a != c).sum())
-                s_mean, s_std = one._src_stats(1, None)
-                (_, _, arrays, to_features), = one._pcm_chunks(one._trimmed([wavs[i]], True), s_mean, s_std)
+                (_, _, arrays, to_features), = one._wav_source([wavs[i]], None, True)[1]
                 x, tl = to_features(*(torch.from_numpy(a).to(one.device) for a in arrays))
                 with torch.inference_mode():
                     lg = one.encoder(x, lengths=tl)[0, : a.shape[0]].float().cpu().numpy()

@@ -558,8 +558,7 @@ def test_converter_split_over_one_card_twice_matches_one_device(cuda, tmp_path):
         assert a.shape == c.shape
         if (a != c).any():  # only where the single device's own logit margin is tiny
             one = Converter(b.hps, b.acfg, enc_sd, dec_sd, stats=b.stats, device=cuda)
-            s_mean, s_std = one._src_stats(1, None)
-            (_, _, arrays, to_features), = one._pcm_chunks(one._trimmed([wavs[i]], True), s_mean, s_std)
+            (_, _, arrays, to_features), = one._wav_source([wavs[i]], None, True)[1]
             x, tlens = to_features(*(torch.from_numpy(a).to(one.device) for a in arrays))
             with torch.inference_mode():
                 lg = one.encoder(x, lengths=tlens)[0, : a.shape[0]].float().cpu().numpy()
@@ -692,8 +691,8 @@ def _cell_converters(cell: str, seed: int, device):
     tr = c["traffic"]
     model = conversion.Model(c["config"], seed, device)
     eager, graphs = (model.program(tr["batch_size"], tr["bucket_frames"]) for _ in range(2))
-    assert graphs._graphs is not None
-    eager._graphs = None
+    assert graphs._graphs.capture
+    eager._graphs.capture = False
     wavs = traffic.utterances(tr["duration_s"], tr["utterances"], seed, model.ac["sr"])
     return eager, graphs, model, tr, wavs
 

@@ -1,11 +1,12 @@
-"""PyTorch port, the Converter's graph route (``convert._Graphs``) on the
+"""PyTorch port, the Converter's one dispatcher (``convert._Graphs``) on the
 CPU: the bookkeeping that runs each dispatch shape as a CUDA graph on the
 card (static inputs filled from a staging ring, a capture on the second
 dispatch of a shape, replays after, outputs copied out at once), with the
-function run in place of a replay. Every route's units and PCM are held
-bit-equal to the same Converter run operator by operator, calls with three
-and more dispatches of one shape included (where a replay overwrites the
-static outputs of the one before)."""
+capture emulated (the function run in place of a replay). Every route's
+units and PCM are held bit-equal to the default CPU Converter, whose
+dispatcher does not capture, calls with three and more dispatches of one
+shape included (where a replay overwrites the static outputs of the one
+before)."""
 
 import numpy as np
 import pytest
@@ -56,12 +57,16 @@ STATS = _stats()
 SD = from_flax(init_params(HPS))
 
 
+def _converter(**kw):
+    return Converter(HPS, ACFG, *SD, batch_size=2, bucket_frames=32, stats=STATS, device="cpu", **kw)
+
+
 def _pair(**kw):
-    """(the Converter run operator by operator, the same on the graph route)."""
-    eager = Converter(HPS, ACFG, *SD, batch_size=2, bucket_frames=32, stats=STATS, device="cpu", **kw)
-    graphs = Converter(HPS, ACFG, *SD, batch_size=2, bucket_frames=32, stats=STATS, device="cpu", **kw)
-    assert eager._graphs is None  # the CPU runs operator by operator
-    graphs._graphs = _Graphs()
+    """(the default CPU Converter, run operator by operator; the same with
+    its dispatcher's capture emulated)."""
+    eager, graphs = _converter(**kw), _converter(**kw)
+    assert not eager._graphs.capture  # the CPU does not capture
+    graphs._graphs.capture = True
     return eager, graphs
 
 
@@ -124,6 +129,25 @@ def test_every_route_is_bit_equal_to_eager_over_three_calls(route):
     assert after["eager"] - before["eager"] == n_shapes
 
 
+@pytest.mark.parametrize("route", ROUTES.values(), ids=ROUTES.keys())
+def test_default_cpu_converter_dispatches_through_graphs_eagerly(route, monkeypatch):
+    """A default CPU Converter sends every dispatch slice through
+    ``_Graphs.run``, which keeps one entry a shape, captures none and
+    counts every slice eager."""
+    kw, call = route
+    conv = _converter(**kw)
+    keys = []
+    run = _Graphs.run
+    monkeypatch.setattr(_Graphs, "run", lambda self, key, *a: keys.append(key) or run(self, key, *a))
+    before = convert.graph_counts()
+    for _ in range(2):
+        call(conv)
+    after = convert.graph_counts()
+    assert keys and {k: after[k] - before[k] for k in after} == {"eager": len(keys), "captured": 0, "replayed": 0}
+    assert set(conv._graphs.entries) == set(keys) and len(keys) > len(set(keys))
+    assert all(e.graph is None and not e.outs for e in conv._graphs.entries.values())
+
+
 def test_three_dispatches_of_one_shape_each_get_their_own_outputs():
     """The 32-frame bucket's four dispatches share one graph. The emulated
     replay writes the static outputs as a replay does, so they end holding
@@ -177,15 +201,19 @@ def test_speaker_ids_and_statistics_follow_each_call():
 
 
 def test_check_numerics_stays_eager():
-    eager, graphs = _pair(check_numerics=True)
+    """check_numerics reads the logits back inside the path, which a
+    capture cannot hold: its dispatches go through the one dispatcher,
+    which captures none of them."""
+    eager, checked = _converter(), _converter(check_numerics=True)
+    assert not checked._graphs.capture
     before = convert.graph_counts()
     for _ in range(2):
-        _same(graphs.convert_wavs_multi(WAVS, [1, 2], tgt_names=TGTS),
+        _same(checked.convert_wavs_multi(WAVS, [1, 2], tgt_names=TGTS),
               eager.convert_wavs_multi(WAVS, [1, 2], tgt_names=TGTS))
     after = convert.graph_counts()
-    assert not graphs._graphs.entries
+    assert checked._graphs.entries and all(e.graph is None for e in checked._graphs.entries.values())
     assert after["captured"] == before["captured"] and after["replayed"] == before["replayed"]
-    assert after["eager"] - before["eager"] == 4 * len(_wav_shapes(graphs, WAVS))
+    assert after["eager"] - before["eager"] == 4 * len(_wav_shapes(checked, WAVS))
 
 
 def test_graph_counts_is_a_copy():

@@ -125,9 +125,9 @@ def test_dequantises_in_the_compute_dtype(setup, monkeypatch):
     p = Converter(h, AudioConfig(**ACFG), *from_flax(params), batch_size=3, bucket_frames=32, device="cpu",
                   wire="uint8", compute_dtype="bfloat16")
     seen = []
-    core, enc = p._convert_core, p._encode
+    core, enc = p._convert_core, p._units_core
     monkeypatch.setattr(p, "_convert_core", lambda dev, x, *a: seen.append(("full", x.dtype)) or core(dev, x, *a))
-    monkeypatch.setattr(p, "_encode", lambda dev, x, t: seen.append(("units", x.dtype)) or enc(dev, x, t))
+    monkeypatch.setattr(p, "_units_core", lambda dev, x, t: seen.append(("units", x.dtype)) or enc(dev, x, t))
     p.convert_features_multi(feats, [0])
     p.encode_units(feats)
     assert set(seen) == {("full", torch.bfloat16), ("units", torch.float32)}

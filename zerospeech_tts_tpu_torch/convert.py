@@ -44,19 +44,22 @@ return and the files hold stays int16 PCM), and ``wire="uint8"``
 its own [min, max] on the host and dequantises them on the device (the
 features route; the wav routes have no feature wire).
 
-On CUDA devices a dispatch's device work runs as the replay of a CUDA
-graph, one a dispatch shape (``_Graphs``): the first dispatch of a shape
-runs operator by operator, the second captures and replays, every later
-one replays. The wire arrays cross through pinned staging buffers into the
-graph's own inputs, and its outputs go straight back into pinned host
-tensors of the dispatch's own. ``check_numerics`` and the CPU run operator
-by operator. ``graph_counts()`` counts the dispatches each way.
+Every dispatch slice, on every device, goes through one dispatcher
+(``_Graphs``): the wire arrays cross through staging buffers (pinned on a
+card) into the inputs it keeps for the dispatch shape, and the outputs go back into
+host tensors of the dispatch's own. On CUDA devices a shape's device work
+runs as the replay of a CUDA graph: the first dispatch of a shape runs
+operator by operator, the second captures and replays, every later one
+replays. ``check_numerics`` and the CPU run through the same dispatcher
+without capture. ``graph_counts()`` counts the dispatches each way.
 """
 
 from __future__ import annotations
 
 import copy
+import functools
 from pathlib import Path
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -251,9 +254,69 @@ def uint8_wire(x: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     return q.astype(np.uint8), lo, scale
 
 
+class _PcmWire(NamedTuple):
+    """Everything the PCM wire decides, both directions: a silent host
+    batch of its codes (``batch(rows, samples)``), int16 PCM to codes on
+    the host, codes to float samples on the device, float samples to codes
+    on the device, and codes to int16 PCM on the host."""
+
+    batch: Callable
+    host_encode: Callable
+    device_decode: Callable
+    device_encode: Callable
+    host_decode: Callable
+
+
+_PCM_WIRES = {
+    "int16": _PcmWire(
+        lambda rows, n: np.zeros((rows, n), np.int16),
+        lambda pcm: pcm,
+        lambda pcm: pcm.to(torch.float32) * (1.0 / 32768.0),  # load_wav convention
+        lambda wav: torch.clamp(wav * 32767.0, -32768.0, 32767.0).to(torch.int16),
+        lambda pcm: pcm,
+    ),
+    # 8-bit companded codes; silence is code 128 (code 0 would be full scale negative)
+    "mulaw": _PcmWire(  # each codec looked up when called: tests count its calls
+        lambda rows, n: np.full((rows, n), 128, np.uint8),
+        lambda pcm: mulaw_compress_host(pcm),
+        lambda pcm: mulaw_expand_device(pcm),
+        lambda wav: mulaw_compress_device(torch.clamp(wav, -1.0, 1.0)),
+        lambda pcm: mulaw_expand_host(pcm),
+    ),
+}
+
+
+def _uint8_encode(x, tl):
+    q, lo, scale = uint8_wire(x)
+    return q, tl, lo, scale
+
+
+def _uint8_decode(dtype, q, tl, lo, scale):
+    lo, scale = (a.to(dtype)[:, None, None] for a in (lo, scale))
+    return q.to(dtype) * scale + lo, tl
+
+
+class _FeatureWire(NamedTuple):
+    """Everything the feature wire decides, host to device: a padded f32
+    batch [B, T, F] and its true frame counts to the arrays that cross, and
+    those arrays on the device to (features, true frame counts), the uint8
+    codes dequantised in the ``dtype`` it is given (bf16 features are read
+    back in f32)."""
+
+    host_encode: Callable
+    device_decode: Callable
+
+
+_FEATURE_WIRES = {
+    "bf16": _FeatureWire(lambda x, tl: (torch.from_numpy(x).to(torch.bfloat16), tl),
+                         lambda dtype, x, tl: (x.to(torch.float32), tl)),
+    "uint8": _FeatureWire(_uint8_encode, _uint8_decode),
+}
+
+
 # dispatch slices by how they ran: operator by operator ("eager": every
-# slice off the graph route, and a shape's first on it), graphs captured,
-# and graph replays
+# slice of a dispatcher that does not capture, and a shape's first on one
+# that does), graphs captured, and graph replays
 _graph_runs = {"eager": 0, "captured": 0, "replayed": 0}
 
 
@@ -336,16 +399,18 @@ class _Graph:
 
 
 class _Graphs:
-    """The Converter's dispatches as CUDA graphs, one a dispatch shape
-    (``key``: the route, the device, every input's shape and dtype, the
-    Griffin-Lim iterations and the matmul precision flags).
+    """The Converter's one dispatcher: every dispatch slice, one entry a
+    dispatch shape (``key``: the route, the wires, the device, every
+    input's shape and dtype, the Griffin-Lim iterations and the matmul
+    precision flags).
 
     :meth:`run` fills the shape's static inputs (the wire arrays by
     non-blocking copies from a :class:`_Staging` slot, the call's speaker
     ids and target statistics by device copies); runs ``fn`` on them
     eagerly the first time (the warm-up a capture needs: cuDNN's plans,
-    the kernels' tables and builds, the GRU plans), captures it into a
-    graph and replays it the second time, and replays it every later time;
+    the kernels' tables and builds, the GRU plans); where it may
+    ``capture``, captures it into a CUDA graph and replays it the second
+    time and replays it every later time, else runs it eagerly every time;
     then copies the outputs into host tensors of the dispatch's own on the
     same stream. The next replay of a shape overwrites its static outputs,
     and every dispatch of a call is launched before any is read back, so
@@ -354,10 +419,12 @@ class _Graphs:
 
     A capture records the kernel launches it made (``ops.launch_counts``)
     and takes them back, since nothing ran; each replay adds them. Off the
-    card (the CPU tests) the same bookkeeping runs ``fn`` in place of a
-    replay and writes its outputs into the static ones."""
+    card (the CPU tests, with ``capture`` set) the same bookkeeping runs
+    ``fn`` in place of a replay and writes its outputs into the static
+    ones."""
 
-    def __init__(self):
+    def __init__(self, capture: bool):
+        self.capture = capture
         self.entries: dict[tuple, _Graph] = {}
         self.staging = _Staging()
         self._pools: dict[torch.device, tuple] = {}
@@ -373,7 +440,7 @@ class _Graphs:
         for dst, src in zip(e.ins, views + list(shared)):
             dst.copy_(src, non_blocking=card)
         slot[1] = _recorded(dev)
-        if first:
+        if first or not self.capture:
             outs = fn(*e.ins)
             self.entries[key] = e  # kept once its warm-up ran
             _graph_runs["eager"] += 1
@@ -443,6 +510,10 @@ class Converter:
     ``check_numerics``: raise FloatingPointError at the first non-finite
     encoder logit of a true frame (one wait for the device a dispatch).
 
+    Every dispatch runs through the one dispatcher (``_Graphs``, module
+    docstring). It captures CUDA graphs where every device is CUDA and
+    ``check_numerics`` is off; otherwise it runs each dispatch eagerly.
+
     ``wire`` (features, host to device): ``"bf16"`` or ``"uint8"`` (per
     utterance min/max codes, dequantised on the device in the compute
     dtype, in f32 for units only). ``pcm_wire`` (PCM, both directions):
@@ -477,12 +548,13 @@ class Converter:
     ):
         if feat not in ("lin", "mel"):
             raise ValueError(f"feat must be lin or mel, got {feat!r}")
-        if wire not in ("bf16", "uint8"):
+        if wire not in _FEATURE_WIRES:
             raise ValueError(f"wire must be bf16 or uint8, got {wire!r}")
-        if pcm_wire not in ("int16", "mulaw"):
+        if pcm_wire not in _PCM_WIRES:
             raise ValueError(f"pcm_wire must be int16 or mulaw, got {pcm_wire!r}")
         assert bucket_frames % hps.downsample == 0
         self.feat, self.wire, self.pcm_wire = feat, wire, pcm_wire
+        self._features, self._pcm = _FEATURE_WIRES[wire], _PCM_WIRES[pcm_wire]
         self.compute_dtype = _as_dtype(compute_dtype)
         self.encoder_dtype = _as_dtype(encoder_dtype) if encoder_dtype else self.compute_dtype
         self.devices = [torch.device(d) for d in (devices or [device])]
@@ -491,7 +563,8 @@ class Converter:
             raise RuntimeError(f"devices {self.devices}: no CUDA device is visible")
         self.hps, self.acfg, self.stats = hps, acfg, stats
         self.check_numerics = check_numerics
-        self._graphs = _Graphs() if all(d.type == "cuda" for d in self.devices) else None
+        # a capture cannot hold check_numerics' read of the logits on the host
+        self._graphs = _Graphs(capture=not check_numerics and all(d.type == "cuda" for d in self.devices))
         self.gl_iters = gl_iters if gl_iters is not None else acfg.gl_iters
         n_dev = len(self.devices)
         self.batch_size = -(-batch_size // n_dev) * n_dev  # whole rows on every device
@@ -580,19 +653,6 @@ class Converter:
         n_dev = len(self.devices)
         return -(-_round_rows(k, cap or self.batch_size) // n_dev) * n_dev
 
-    def _slices(self, rows: int):
-        """(device, row slice) of each device's contiguous share of a
-        ``rows``-row dispatch."""
-        b = rows // len(self.devices)
-        return [(d, slice(i * b, (i + 1) * b)) for i, d in enumerate(self.devices)]
-
-    def _pad_frames(self, feats: np.ndarray) -> np.ndarray:
-        t = feats.shape[0]
-        tb = self._bucket_of(t)
-        if tb > t:
-            feats = np.pad(feats, ((0, tb - t), (0, 0)))
-        return feats
-
     def _dispatches(self, frames: list[int], sizes: list[int]):
         """(bucket frames, utterance indices, batch rows) of each dispatch:
         utterances longest ``sizes`` first (stable), grouped by bucket and
@@ -639,19 +699,16 @@ class Converter:
         xh = torch.clamp(xh * std_all + mean_all, 0.0, 1.0)
         vocoder = dsp_audio.spectrogram2wav if self.feat == "lin" else dsp_audio.melspectrogram2wav
         wav = vocoder(xh, acfg, n_iters=self.gl_iters)  # [B*n_tgt, n]
-        if self.pcm_wire == "mulaw":  # the 8-bit companded down-wire
-            pcm = mulaw_compress_device(torch.clamp(wav, -1.0, 1.0))
-        else:
-            pcm = torch.clamp(wav * 32767.0, -32768.0, 32767.0).to(torch.int16)
+        pcm = self._pcm.device_encode(wav)
         return units, pcm.reshape(bsz, n_tgt, -1).transpose(0, 1)
 
-    def _encode(self, dev, x, tlens):
-        """Normalised features [B, T, F] on ``dev`` -> units [B, T/ds, emb]
-        int32, from the f32 encoder in every configuration (the JAX
+    def _units_core(self, dev, x, tlens):
+        """Normalised features [B, T, F] on ``dev`` -> (units [B, T/ds, emb]
+        int32,), from the f32 encoder in every configuration (the JAX
         package's units-only programs run the uncast parameters)."""
         logits = self._models[dev][0](x, lengths=tlens)
         self._check_logits(logits, tlens)
-        return unit_bits(logits, self.hps.enc_mode)
+        return (unit_bits(logits, self.hps.enc_mode),)
 
     def _check_logits(self, logits, tlens) -> None:
         """With check_numerics: raise at a non-finite logit of a true
@@ -672,174 +729,143 @@ class Converter:
         source z-norm: (features [B, T, F], true frame counts [B]).
         ``slens`` ([B] true sample counts) gives exact tail reflection in
         the frontend."""
-        if self.pcm_wire == "mulaw":
-            y = mulaw_expand_device(pcm)
-        else:
-            y = pcm.to(torch.float32) * (1.0 / 32768.0)  # load_wav convention
+        y = self._pcm.device_decode(pcm)
         mel, mag = dsp_audio.wav_to_features(y, self.acfg, length=slens)
         x = ((mag if self.feat == "lin" else mel) - src_mean[:, None, :]) / src_std[:, None, :]
         return x, 1 + slens // self.acfg.hop_length
 
-    def _src_stats(self, n: int, src_speakers):
-        """Source z-norm [n, F] mean/std: the speakers' statistics
-        ('__global__' when not given), or identity without stats."""
+    def _speaker_stats(self, n: int, names):
+        """[n, F] mean/std of ``n`` speakers: the named speakers' statistics
+        ('__global__' when not named), or identity without stats."""
         if self.stats is None:
             return (np.zeros((n, self.hps.n_feat), np.float32),
                     np.ones((n, self.hps.n_feat), np.float32))
-        return self.stats.arrays_for(src_speakers or ["__global__"] * n)
+        return self.stats.arrays_for(names or ["__global__"] * n)
 
-    def _targets(self, spk_ids, tgt_names):
-        """The targets' ids [n_tgt] and denorm mean/std [n_tgt, F] on each
-        device, once a call."""
-        if self.stats is None:
-            m = np.zeros((len(spk_ids), self.hps.n_feat), np.float32)
-            s = np.ones((len(spk_ids), self.hps.n_feat), np.float32)
-        else:
-            m, s = self.stats.arrays_for(tgt_names)
-        ids = np.asarray(spk_ids, np.int64)
-        return {d: tuple(_to_device(a, d) for a in (ids, m, s)) for d in self._models}
-
-    @staticmethod
-    def _wire_features(x, tl, lo=None, scale=None, dtype=torch.float32):
-        """A feature dispatch's wire arrays on the device -> (features, true
-        frame counts). On the bf16 wire ``x`` crossed in bf16 and is read
-        back in f32; on the uint8 wire ``x`` holds the codes, dequantised
-        in ``dtype`` as q * scale + lo."""
-        if lo is None:
-            return x.to(torch.float32), tl
-        lo, scale = (a.to(dtype)[:, None, None] for a in (lo, scale))
-        return x.to(dtype) * scale + lo, tl
-
-    def _pcm_chunks(self, wavs, s_mean, s_std):
-        """Per dispatch of the trimmed float ``wavs``: (utterance indices,
-        batch rows, host arrays [rows, ...] as they cross the wire, the
-        function that takes rows of them on a device to features [rows, tb,
-        F] and true frame counts there). Dummy rows are silent and act
-        full-length."""
+    def _pcm_chunks(self, wavs, frames, s_mean, s_std):
+        """Per dispatch of the trimmed float ``wavs`` (``frames`` true
+        frames each): (utterance indices, batch rows, host arrays [rows,
+        ...] as they cross the PCM wire, the function that takes rows of
+        them on a device to features [rows, tb, F] and true frame counts
+        there). Dummy rows are silent and act full-length."""
         acfg, hps = self.acfg, self.hps
-        frames = [dsp_audio.n_frames_for(len(w), acfg) for w in wavs]
-        mulaw = self.pcm_wire == "mulaw"
         for tb, chunk, bs_c in self._dispatches(frames, [len(w) for w in wavs]):
             with span("convert.pack"):  # closed before the yield: the launch is not packing
                 n_samp = tb * acfg.hop_length - 1  # longest signal with tb frames
-                # mu-law silence is code 128 (code 0 would be full scale negative)
-                pcm = np.full((bs_c, n_samp), 128, np.uint8) if mulaw else np.zeros((bs_c, n_samp), np.int16)
+                pcm = self._pcm.batch(bs_c, n_samp)
                 sm = np.zeros((bs_c, hps.n_feat), np.float32)
                 ss = np.ones((bs_c, hps.n_feat), np.float32)
                 sl = np.full(bs_c, n_samp, np.int64)
                 for j, i in enumerate(chunk):
                     w = np.clip(np.rint(wavs[i] * 32768.0), -32768, 32767).astype(np.int16)
-                    pcm[j, : len(w)] = mulaw_compress_host(w) if mulaw else w
+                    pcm[j, : len(w)] = self._pcm.host_encode(w)
                     sm[j], ss[j] = s_mean[i], s_std[i]
                     sl[j] = len(w)
             yield chunk, bs_c, (pcm, sm, ss, sl), self._wav_features
 
-    def _feature_chunks(self, feats_list, dtype=torch.float32):
+    def _feature_chunks(self, feats_list, frames, dtype):
         """Per dispatch of normalised [T_i, F] features: as _pcm_chunks,
-        the features crossing on the Converter's wire (uint8: the codes,
-        their lo and scale, dequantised in ``dtype``); dummy rows are zeros
-        at full length."""
-        frames = [f.shape[0] for f in feats_list]
-        to_features = lambda *a: self._wire_features(*a, dtype=dtype)  # noqa: E731
+        the features crossing on the feature wire (uint8: dequantised in
+        ``dtype``); dummy rows are zeros at full length."""
+        to_features = functools.partial(self._features.device_decode, dtype)
         for tb, chunk, bs_c in self._dispatches(frames, frames):
             with span("convert.pack"):
                 x = np.zeros((bs_c, tb, self.hps.n_feat), np.float32)
                 tl = np.full(bs_c, tb, np.int64)
                 for j, i in enumerate(chunk):
-                    x[j] = self._pad_frames(feats_list[i])
+                    x[j, : frames[i]] = feats_list[i]
                     tl[j] = frames[i]
-                if self.wire == "uint8":
-                    q, lo, scale = uint8_wire(x)
-                    arrays = (q, tl, lo, scale)
-                else:
-                    arrays = (torch.from_numpy(x).to(torch.bfloat16), tl)
+                arrays = self._features.host_encode(x, tl)
             yield chunk, bs_c, arrays, to_features
 
-    def _launch(self, chunks, core, route: tuple, shared=lambda dev, rows: ()):
+    def _wav_source(self, wavs, src_speakers, trim: bool):
+        """The wav entries' prologue: (true frame counts, _pcm_chunks) of
+        the wavs, trimmed unless ``trim`` is off, z-scored with their
+        speakers' statistics."""
+        with span("convert.trim"):
+            wavs = [np.asarray(w, np.float32) for w in wavs]
+            wavs = [trim_silence(w, self.acfg.top_db) for w in wavs] if trim else wavs
+        s_mean, s_std = self._speaker_stats(len(wavs), src_speakers)
+        frames = [dsp_audio.n_frames_for(len(w), self.acfg) for w in wavs]
+        return frames, self._pcm_chunks(wavs, frames, s_mean, s_std)
+
+    def _feature_source(self, feats_list, src_speakers, dtype):
+        """The feature entries' prologue: (true frame counts,
+        _feature_chunks) of the features z-scored with each source
+        speaker's statistics, uint8 codes dequantised in ``dtype``."""
+        if self.stats is None:
+            feats_list = [np.asarray(f, np.float32) for f in feats_list]
+        else:
+            feats_list = [self.stats.normalize(f, s) for f, s in zip(feats_list, src_speakers)]
+        frames = [f.shape[0] for f in feats_list]
+        return frames, self._feature_chunks(feats_list, frames, dtype)
+
+    def _launch(self, chunks, core, route: tuple, shared):
         """For each dispatch, ``core(dev, x, tlens, *shared(dev, rows))`` (a
-        tuple of device tensors) on every device's slice of its rows, all
-        launched before any is read back: [(utterance indices, [each slice's
-        outputs])]. A slice's outputs are that tuple (operator by operator:
-        check_numerics, or a device that is not CUDA) or a ``_Pending`` (a
-        graph's); :func:`_host_outputs` reads either. ``route`` names what
-        ``core`` and the chunks' function compute, for the graphs' keys."""
-        graphs = None if self.check_numerics else self._graphs
+        tuple of device tensors) on every device's slice of its rows through
+        the dispatcher, all launched before any is read back: [(utterance
+        indices, [each slice's _Pending])]. ``route`` names what ``core``
+        and the chunks' function compute, for the dispatcher's keys."""
         inflight = []
         for chunk, bs_c, arrays, to_features in chunks:
             with span("convert.launch"):
-                parts = []
-                for dev, rows in self._slices(bs_c):
-                    host = [torch.as_tensor(a[rows]) for a in arrays]
-                    extra = shared(dev, rows.stop - rows.start)
-                    if graphs is None:
-                        _graph_runs["eager"] += 1
-                        parts.append(core(dev, *to_features(*(t.to(dev) for t in host)), *extra))
-                        continue
+                parts, b = [], bs_c // len(self.devices)  # each device's contiguous share of the rows
+                for d, dev in enumerate(self.devices):
+                    host = [torch.as_tensor(a[d * b : (d + 1) * b]) for a in arrays]
+                    extra = list(shared(dev, b))
 
                     def fn(*ins, _dev=dev, _f=to_features, _n=len(host)):
                         return core(_dev, *_f(*ins[:_n]), *ins[_n:])
 
                     key = (route, self.pcm_wire, self.wire, self.gl_iters, dev,
-                           tuple((tuple(t.shape), t.dtype) for t in host + list(extra)), _precision())
-                    parts.append(graphs.run(key, dev, host, list(extra), fn))
+                           tuple((tuple(t.shape), t.dtype) for t in host + extra), _precision())
+                    parts.append(self._graphs.run(key, dev, host, extra, fn))
             inflight.append((chunk, parts))
         return inflight
 
-    def _normalized(self, feats_list, src_speakers):
-        """Features z-scored with each source speaker's statistics."""
-        if self.stats is None:
-            return [np.asarray(f, np.float32) for f in feats_list]
-        return [self.stats.normalize(f, s) for f, s in zip(feats_list, src_speakers)]
+    def _run(self, t_true, chunks, spk_ids=None, tgt_names=None):
+        """Launch every chunk's dispatches first, then read back: the units
+        of each utterance cut to its ``t_true`` frames, and, with targets
+        (``spk_ids``), (units, PCM per target), each PCM cut to its frames
+        and decoded from the PCM wire to int16 on the host."""
+        if spk_ids is None:
+            core, route, shared = self._units_core, ("units",), lambda dev, rows: ()
+        else:
+            arrays = (np.asarray(spk_ids, np.int64), *self._speaker_stats(len(spk_ids), tgt_names))
+            targets = {d: tuple(_to_device(a, d) for a in arrays) for d in self._models}  # once a call
 
-    def _run_conversion(self, chunks, n, spk_ids, tgt_names, t_true):
-        """Launch the whole path for every chunk first, then read back:
-        (units_list, wavs_per_target) trimmed to each utterance's
-        ``t_true`` frames, mu-law codes expanded to int16 on the host."""
-        if self.stats is not None and tgt_names is None:
-            raise ValueError(
-                "speaker_norm is on (Converter has stats) but tgt_names was not given — "
-                "conversion would denormalize with the WRONG (global) statistics. Pass "
-                "per-target names, or build the Converter with stats=None to opt out."
-            )
-        targets = self._targets(spk_ids, tgt_names)
+            def shared(dev, rows):  # the ids [n_tgt, rows] of a slice, its targets' statistics
+                ids, mean, std = targets[dev]
+                return ids[:, None].expand(-1, rows), mean, std
 
-        def shared(dev, rows):  # the ids [n_tgt, rows] of a slice, its targets' statistics
-            ids, mean, std = targets[dev]
-            return ids[:, None].expand(-1, rows), mean, std
-
-        inflight = self._launch(chunks, lambda *a: self._convert_core(*a), ("convert",), shared)
+            core, route = self._convert_core, ("convert",)
+        inflight = self._launch(chunks, core, route, shared)
         ds, hop = self.hps.downsample, self.acfg.hop_length
-        units_out: list = [None] * n
-        wavs_out: list[list] = [[None] * n for _ in spk_ids]
+        units_out: list = [None] * len(t_true)
+        wavs_out: list[list] = [[None] * len(t_true) for _ in spk_ids or ()]
         for chunk, parts in inflight:  # row j is row j % b of slice j // b: no concatenating copy
             with span("convert.readback"):
-                units, pcm = zip(*(_host_outputs(p) for p in parts))  # pcm: each [n_tgt, b, n]
-                b = units[0].shape[0]
+                outs = [p.numpy() for p in parts]  # a slice's units [b, ...], with targets its PCM [n_tgt, b, n]
+                b = outs[0][0].shape[0]
                 for j, i in enumerate(chunk):
                     q, r = divmod(j, b)
-                    units_out[i] = units[q][r][: -(-t_true[i] // ds)].astype(np.int32)
-                    for k in range(len(spk_ids)):
-                        row = pcm[q][k, r][: max(t_true[i] - 1, 1) * hop]
-                        wavs_out[k][i] = mulaw_expand_host(row) if self.pcm_wire == "mulaw" else row
-        return units_out, wavs_out
+                    units_out[i] = outs[q][0][r][: -(-t_true[i] // ds)].astype(np.int32)
+                    for k, wavs in enumerate(wavs_out):
+                        wavs[i] = self._pcm.host_decode(outs[q][1][k, r][: max(t_true[i] - 1, 1) * hop])
+        return units_out if spk_ids is None else (units_out, wavs_out)
 
-    def _run_encoding(self, chunks, n, t_true):
-        inflight = self._launch(chunks, lambda *a: (self._encode(*a),), ("units",))
-        ds = self.hps.downsample
-        out: list = [None] * n
-        for chunk, parts in inflight:
-            with span("convert.readback"):
-                units = [_host_outputs(p)[0] for p in parts]
-                b = units[0].shape[0]
-                for j, i in enumerate(chunk):
-                    q, r = divmod(j, b)
-                    out[i] = units[q][r][: -(-t_true[i] // ds)].astype(np.int32)
-        return out
-
-    def _trimmed(self, wavs, trim: bool):
-        with span("convert.trim"):
-            wavs = [np.asarray(w, np.float32) for w in wavs]
-            return [trim_silence(w, self.acfg.top_db) for w in wavs] if trim else wavs
+    def _require_names(self, **names) -> None:
+        """With speaker_norm on (the Converter has stats), refuse a call that
+        misses any of ``names``: it would (de)normalise with the WRONG
+        (global) statistics."""
+        missing = [k for k, v in names.items() if v is None]
+        if self.stats is not None and missing:
+            raise ValueError(
+                f"speaker_norm is on (Converter has stats) but {' and '.join(missing)} was not given — "
+                "conversion would (de)normalize with the WRONG (global) statistics. Pass the source "
+                "speaker per utterance and the name of each target, or build the Converter with "
+                "stats=None to opt out."
+            )
 
     # ------------------------------------------------------------- entries
 
@@ -857,13 +883,11 @@ class Converter:
         bucket chunk. Returns (units_list, wavs_per_target): units_list[i]
         is utterance i's {0,1} int32 [ceil(t/ds), emb] array,
         wavs_per_target[k][i] its int16 PCM for target k. With speaker_norm
-        on, sources default to the '__global__' statistics."""
+        on, ``tgt_names`` is required and sources default to the
+        '__global__' statistics."""
+        self._require_names(tgt_names=tgt_names)
         with span("convert.convert_wavs_multi"):
-            wavs = self._trimmed(wavs, trim)
-            s_mean, s_std = self._src_stats(len(wavs), src_speakers)
-            t_true = [dsp_audio.n_frames_for(len(w), self.acfg) for w in wavs]
-            return self._run_conversion(self._pcm_chunks(wavs, s_mean, s_std), len(wavs), spk_ids,
-                                        tgt_names, t_true)
+            return self._run(*self._wav_source(wavs, src_speakers, trim), spk_ids, tgt_names)
 
     @torch.inference_mode()
     def encode_units_from_wavs(
@@ -878,10 +902,7 @@ class Converter:
         so its units are those of the full conversion. Sources default to
         the '__global__' statistics."""
         with span("convert.encode_units_from_wavs"):
-            wavs = self._trimmed(wavs, trim)
-            s_mean, s_std = self._src_stats(len(wavs), src_speakers)
-            t_true = [dsp_audio.n_frames_for(len(w), self.acfg) for w in wavs]
-            return self._run_encoding(self._pcm_chunks(wavs, s_mean, s_std), len(wavs), t_true)
+            return self._run(*self._wav_source(wavs, src_speakers, trim))
 
     @torch.inference_mode()
     def encode_units(self, feats_list: list[np.ndarray], src_speakers=None) -> list[np.ndarray]:
@@ -890,17 +911,9 @@ class Converter:
         missing. Chunks follow _chunk_batch, as convert_features_multi's
         do; the JAX package pads every chunk here to batch_size, which
         changes no unit (a row's units do not depend on the other rows)."""
-        if self.stats is not None and src_speakers is None:
-            raise ValueError(
-                "speaker_norm is on (Converter has stats) but src_speakers was not given — "
-                "units would be computed from features normalized with the WRONG (global) "
-                "statistics. Pass the source speaker per utterance, or build the Converter "
-                "with stats=None to opt out."
-            )
+        self._require_names(src_speakers=src_speakers)
         with span("convert.encode_units"):
-            feats_list = self._normalized(feats_list, src_speakers)
-            t_true = [f.shape[0] for f in feats_list]
-            return self._run_encoding(self._feature_chunks(feats_list), len(feats_list), t_true)
+            return self._run(*self._feature_source(feats_list, src_speakers, torch.float32))
 
     @torch.inference_mode()
     def convert_features_multi(
@@ -913,19 +926,10 @@ class Converter:
         """Convert [T_i, n_feat] features (the Converter's ``feat``) for
         several targets in one pass (same returns as convert_wavs_multi).
         With stats on, both ``src_speakers`` and ``tgt_names`` are required."""
-        if self.stats is not None and (src_speakers is None or tgt_names is None):
-            raise ValueError(
-                "speaker_norm is on (Converter has stats) but "
-                f"{'src_speakers' if src_speakers is None else 'tgt_names'} was not given — "
-                "conversion would (de)normalize with the WRONG (global) statistics. Pass "
-                "per-utterance source speakers and per-target names, or build the Converter "
-                "with stats=None to opt out."
-            )
+        self._require_names(src_speakers=src_speakers, tgt_names=tgt_names)
         with span("convert.convert_features_multi"):
-            feats_list = self._normalized(feats_list, src_speakers)
-            t_true = [f.shape[0] for f in feats_list]
-            return self._run_conversion(self._feature_chunks(feats_list, self.compute_dtype),
-                                        len(feats_list), spk_ids, tgt_names, t_true)
+            return self._run(*self._feature_source(feats_list, src_speakers, self.compute_dtype),
+                             spk_ids, tgt_names)
 
     def convert_features(self, feats_list: list[np.ndarray], spk_id: int):
         """Single-target convenience wrapper: [(units_i, wav_i)]."""
@@ -934,12 +938,9 @@ class Converter:
 
     def convert_wav(self, wav: np.ndarray, spk_id: int, trim: bool = True, tgt_name=None):
         """Single-utterance conversion (ref --test_single); the source is
-        z-scored with the global statistics when speaker_norm is on."""
-        if self.stats is not None and tgt_name is None:
-            raise ValueError(
-                "speaker_norm is on: convert_wav needs tgt_name to denormalize "
-                "with the target speaker's statistics"
-            )
+        z-scored with the global statistics when speaker_norm is on, which
+        needs ``tgt_name`` to denormalise with the target's statistics."""
+        self._require_names(tgt_name=tgt_name)
         units, wavs = self.convert_wavs_multi(
             [wav], [spk_id], tgt_names=[tgt_name] if self.stats is not None else None, trim=trim
         )
@@ -950,13 +951,6 @@ def _precision() -> tuple:
     """The matmul precision flags a graph's captured kernels were chosen under."""
     return (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
             torch.get_float32_matmul_precision())
-
-
-def _host_outputs(part) -> list[np.ndarray]:
-    """A dispatch slice's outputs (``Converter._launch``) as host arrays."""
-    if isinstance(part, _Pending):
-        return part.numpy()
-    return [t.cpu().numpy() for t in part]
 
 
 def _bucket_stats(converter: Converter, true_frames) -> dict:
