@@ -61,7 +61,8 @@
    flagship width: preprocess -> train1 (4 iterations a phase) -> train1
    resumed -> train2 (one GAN cycle) -> export, counting kernel launches
    and timing kernel 3 at the path's own inputs, then convert with the
-   trained bundle, counted apart; checks losses,
+   trained bundle, counted apart; checks losses, that every critic step
+   took the explicit penalty route (penalty_counts, both train2 runs),
    parameter updates and gradients; then one pretrain_AE and one train
    step on the card against the CPU from the same state and the same draws,
    with the CPU replaying the card's hard decisions and few of its own
@@ -170,6 +171,17 @@ def fail(msg: str) -> None:
 def check(ok: bool, msg: str) -> None:
     if not ok:
         raise RuntimeError(msg)
+
+
+def check_penalty_route(before: dict, critic_steps: int, route: str) -> None:
+    """Every critic step of ``route`` took the critic's explicit penalty
+    route, with one backward-filter call for each of its five convs."""
+    from zerospeech_tts_tpu_torch.models.patch_discriminator import penalty_counts
+
+    got = {k: v - before[k] for k, v in penalty_counts().items()}
+    check(got == {"routes": critic_steps, "weight_grads": 5 * critic_steps},
+          f"{route}: penalty routes {got} for {critic_steps} critic steps")
+    print(f"  {route}: penalty routes {got['routes']}, backward-filter calls {got['weight_grads']}", flush=True)
 
 
 def card_line() -> str:
@@ -1466,6 +1478,7 @@ def mel_path(work: Path, device: str = "cuda") -> dict:
     from zerospeech_tts_tpu_torch.config import DEFAULT_HPS_PATH, load_configs
     from zerospeech_tts_tpu_torch.convert import read_units
     from zerospeech_tts_tpu_torch.dsp import audio
+    from zerospeech_tts_tpu_torch.models.patch_discriminator import penalty_counts
     from zerospeech_tts_tpu_torch.tools.workload import TARGETS, write_train_corpus
 
     shutil.rmtree(work, ignore_errors=True)
@@ -1485,9 +1498,11 @@ def mel_path(work: Path, device: str = "cuda") -> dict:
     r1 = cli.main(["train1", "-dataset_path", ds, "-ckpt_dir", ck, "--iters-override", "2", "--feat", "mel",
                    *c_train])
     r1.pop("state")
+    pen = penalty_counts()
     r2 = cli.main(["train2", "-dataset_path", ds, "-ckpt_dir", ck, "--iters-override", "1", "--feat", "mel",
                    "--data-bf16", "--targets", *TARGETS, *c_train])
     r2.pop("state")
+    check_penalty_route(pen, hps.n_critic, "train2 --feat mel --data-bf16")
     ex = cli.main(["export", "-dataset_path", ds, "-ckpt_dir", ck, "--out", bundle, "--feat", "mel", *c])
     torch.cuda.synchronize()
     train_wall = time.perf_counter() - t0
@@ -1750,6 +1765,7 @@ def train_path(work: Path) -> dict:
     from zerospeech_tts_tpu_torch import cli, ops
     from zerospeech_tts_tpu_torch.config import DEFAULT_HPS_PATH, load_configs
     from zerospeech_tts_tpu_torch.convert import read_units
+    from zerospeech_tts_tpu_torch.models.patch_discriminator import penalty_counts
     from zerospeech_tts_tpu_torch.train import init_state
     from zerospeech_tts_tpu_torch.tools.workload import write_train_corpus
 
@@ -1771,9 +1787,11 @@ def train_path(work: Path) -> dict:
         state1 = r1.pop("state")
         r1b = cli.main(["train1", "-dataset_path", ds, "-ckpt_dir", ck, "--iters-override", "5", *arena])
         r1b.pop("state")
+        pen = penalty_counts()
         r2 = cli.main(["train2", "-dataset_path", ds, "-ckpt_dir", ck, "--iters-override", "1",
                        "--targets", "V001", "V002", *arena])
         state2 = r2.pop("state")
+        check_penalty_route(pen, hps.n_critic, "train2")
         ex = cli.main(["export", "-dataset_path", ds, "-ckpt_dir", ck, "--out", str(work / "bundle"),
                        *common])
         torch.cuda.synchronize()

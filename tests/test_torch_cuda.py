@@ -784,3 +784,62 @@ def test_service_on_graphs_equals_eager_at_mixed_batch_sizes(cuda):
     assert n_shapes == 6  # five row counts of one bucket to two targets, one of units only
     assert {k: after[k] - before[k] for k in after} == {
         "eager": n_shapes, "captured": n_shapes, "replayed": 2 * len(waves) - n_shapes}
+
+
+def test_penalty_route_on_the_card_matches_autograd(cuda):
+    """The critic's explicit penalty route at flagship width, batch 32,
+    float32 with TF32 off, against autograd's ``create_graph`` route: the
+    input gradient within 1e-6 rel-L2 (the same dgrad convs) and each of the
+    penalty's five weight gradients within 1e-4 rel-L2 (float32 sums of up to
+    526,336 products a value, in another order: backward-filter against a
+    forward conv with batch and channels swapped). A profiled critic step
+    runs cuDNN's backward-filter and names no ``implicit_convolve_sgemm``
+    kernel; ``penalty_counts()`` advances by one route and five
+    backward-filter calls a critic step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from zerospeech_tts_tpu_torch.config import DEFAULT_HPS_PATH, load_configs
+    from zerospeech_tts_tpu_torch.models.patch_discriminator import penalty_counts
+    from zerospeech_tts_tpu_torch.train import Solver, init_state
+
+    assert not torch.backends.cudnn.allow_tf32
+    hps, _ = load_configs(DEFAULT_HPS_PATH)
+    state = init_state(hps, seed=7, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    shape = (hps.batch_size, hps.seg_len, hps.n_feat)
+    x = torch.rand(shape, generator=gen, device=cuda)
+    dis = state.dis
+    weights = [p for n, p in dis.named_parameters() if n.endswith("weight") and not n.startswith("cls")]
+
+    def penalty(g):
+        return ((torch.sqrt((g * g).sum(dim=(1, 2)) + 1e-12) - 1.0) ** 2).mean()
+
+    def rel(a, b):
+        return float(((a - b).norm() / b.norm()).detach())
+
+    got = dis.penalty_input_grad(x)
+    got_w = torch.autograd.grad(penalty(got), weights)
+    xr = x.clone().requires_grad_(True)
+    patch, _ = dis(xr)
+    (ref,) = torch.autograd.grad(patch.mean(dim=(1, 2)).sum(), xr, create_graph=True)
+    ref_w = torch.autograd.grad(penalty(ref), weights)
+    gaps = [rel(g, r) for g, r in zip(got_w, ref_w)]
+    print(f"input gradient rel-L2 {rel(got, ref):.3e}; weight gradients " + ", ".join(f"{v:.3e}" for v in gaps))
+    assert rel(got, ref) <= 1e-6
+    assert max(gaps) <= 1e-4, gaps
+
+    batch = {"x": torch.rand(shape, generator=gen, device=cuda),
+             "x_real": torch.rand(shape, generator=gen, device=cuda),
+             "spk_real": torch.randint(0, hps.n_speakers, (hps.batch_size,), generator=gen, device=cuda)}
+    solver = Solver(hps)
+    solver.step_patch_d(state, batch)  # warm: cuDNN's plans
+    torch.cuda.synchronize()
+    before = penalty_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        solver.step_patch_d(state, batch)
+        torch.cuda.synchronize()
+    after = penalty_counts()
+    names = [e.key for e in prof.key_averages()]
+    assert after == {"routes": before["routes"] + 1, "weight_grads": before["weight_grads"] + 5}
+    assert any("wgrad" in n for n in names), names
+    assert not any("implicit_convolve_sgemm" in n for n in names), [n for n in names if "conv" in n]

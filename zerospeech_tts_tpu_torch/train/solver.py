@@ -374,7 +374,8 @@ class Solver:
         """WGAN-GP critic step: fakes are the decoder's conversions of
         ``x`` to targets drawn from ``spk_real``; the gradient penalty
         takes per-sample critic gradients (critic in eval mode) at random
-        mixes of real and fake."""
+        mixes of real and fake, through the critic's explicit route
+        (``PatchDiscriminator.penalty_input_grad``)."""
         h, noise = self.hps, self._noise(state, noise)
         with span("solver.forward"):
             x_src, x_real, spk_real = batch["x"], batch["x_real"], batch["spk_real"]
@@ -385,10 +386,9 @@ class Solver:
             patch_fake, _ = state.dis(x_fake, train=True, noise=noise)
             w_dist = patch_real.mean() - patch_fake.mean()
             eps = noise.uniform((x_real.shape[0], 1, 1), x_real.device)
-            x_hat = (eps * x_real + (1.0 - eps) * x_fake).requires_grad_(True)
-            p_hat, _ = state.dis(x_hat, train=False)
+            x_hat = eps * x_real + (1.0 - eps) * x_fake
             with span("solver.penalty_grad"):
-                (g_int,) = torch.autograd.grad(p_hat.mean(dim=(1, 2)).sum(), x_hat, create_graph=True)
+                g_int = state.dis.penalty_input_grad(x_hat)
             gnorm = torch.sqrt((g_int * g_int).sum(dim=(1, 2)) + 1e-12)
             gp = ((gnorm - 1.0) ** 2).mean()
             l_cls = F.cross_entropy(cls_real, spk_real)
